@@ -83,5 +83,5 @@ def test_pinhole_matches_reference():
 
 
 def test_other_camera_models_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
         tcam.intrinsics_from_cfg(dict(PIN, model="radtan"))

@@ -210,7 +210,10 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import xivo_tpu_torch, xivo_tpu_torch.runner, xivo_tpu_torch.interop\n"
         "import xivo_tpu_torch.sim.stream, xivo_tpu_torch.sim.configs\n"
-        "import xivo_tpu_torch.ops.lanes_chol\n"
+        "import xivo_tpu_torch.ops.lanes_chol, xivo_tpu_torch.ops.lk\n"
+        "import xivo_tpu_torch.frontend.tracker, xivo_tpu_torch.frontend.lk\n"
+        "import xivo_tpu_torch.frontend.fast, xivo_tpu_torch.frontend.brief\n"
+        "import xivo_tpu_torch.sim.render, xivo_tpu_torch.sim.image_stream\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'xivo_tpu'\n"
         "       or m.startswith('xivo_tpu.')]\n"
@@ -235,15 +238,27 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     assert s.P.device.type == "cpu" and s.P.shape == (2, D, D + 3 * 8)
 
 
-@pytest.mark.parametrize("option,slice_no", [
-    ("use_OOS", 2), ("clone_frame_groups", 2), ("use_fej", 2),
-    ("approximate_init_covariance", 2), ("use_depth_opt", 2),
-    ("use_1pt_RANSAC", 2), ("use_huber", 2), ("use_oc", 2),
-    ("online_camera_calib", 2), ("do_outlier_rejection", 3)])
-def test_options_outside_the_slice_raise(option, slice_no):
+@pytest.mark.parametrize("option,item", [
+    ("use_OOS", "A.15"), ("clone_frame_groups", "A.15"),
+    ("use_fej", "A.15"), ("approximate_init_covariance", "A.15"),
+    ("use_depth_opt", "A.16"), ("use_1pt_RANSAC", "A.16"),
+    ("use_huber", "A.16"), ("use_oc", "A.16"),
+    ("online_camera_calib", "A.16"), ("do_outlier_rejection", "A.12"),
+    (("tracker_type", "MATCH"), "A.12"), (("detector", "GFTT"), "A.12"),
+    (("descriptor_type", "orb"), "A.12"), (("cam_model", "equi"), "A.12")])
+def test_options_outside_the_slice_raise(option, item):
+    """Each branch the port leaves out names the ROADMAP.md item (queue
+    A) that brings it, from every entry point."""
     from xivo_tpu_torch.filter.pipeline import vio_frame
-    cfg = dataclasses.replace(torch_cfg(), **{option: True})
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    from xivo_tpu_torch.frontend.tracker import (tracker_only_frame,
+                                                 vio_frame_image)
+    name, value = option if isinstance(option, tuple) else (option, True)
+    cfg = dataclasses.replace(torch_cfg(), **{name: value})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         batch_states(cfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         vio_frame(cfg, None, *([None] * 8))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        vio_frame_image(cfg, None, None, *([None] * 5))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tracker_only_frame(cfg, None, None, None)

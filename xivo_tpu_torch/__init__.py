@@ -1,9 +1,9 @@
 """xivo_tpu_torch — the PyTorch/CUDA port of ``xivo_tpu``.
 
 The JAX package ``xivo_tpu`` stays the reference; this package mirrors its
-layout (``filter/``, ``geom/``, ``cam/``, ``ops/``, ``sim/``, ``runner.py``)
-so each module's counterpart is easy to find. It imports ``torch`` and
-never ``jax`` or anything of ``xivo_tpu``.
+layout (``filter/``, ``frontend/``, ``geom/``, ``cam/``, ``ops/``,
+``sim/``, ``runner.py``) so each module's counterpart is easy to find. It
+imports ``torch`` and never ``jax`` or anything of ``xivo_tpu``.
 
 Conventions: every filter function takes tensors with a leading batch
 axis B (the JAX package's ``vmap`` written out); state is NamedTuples of

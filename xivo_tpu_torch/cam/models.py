@@ -27,7 +27,7 @@ def _check(kind: int):
     if kind != PINHOLE:
         raise NotImplementedError(
             "xivo_tpu_torch: only the pinhole camera is ported; the "
-            "atan/equidistant/radtan models come with slice 3 (image mode)")
+            "atan/equidistant/radtan models come with ROADMAP A.12")
 
 
 def project(kind: int, intrin, xc):

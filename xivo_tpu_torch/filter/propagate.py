@@ -4,7 +4,7 @@
 Batched over a leading axis B: every MotionState field carries it, and
 ``dt`` is (B,). Only the static-grid fast variant is ported
 (``propagate_interval_fast_static``, selected by the default
-``fast_substeps=4``); the reference integrators come with slice 2.
+``fast_substeps=4``); the reference integrators come with ROADMAP A.16.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ Same fixed-capacity masked tables as the reference. Differences:
 * index and count fields are int64 (the reference uses int32);
 * ``FeatureTable.desc`` holds the 32-bit descriptor words in int64;
 * no PRNG key: the reference uses ``s.key`` only for the homography
-  RANSAC of ``tracker_pointcloud``, which this port does not carry yet.
+  RANSAC of the trackers, which this port does not carry yet.
 
 The filter functions take every field with a leading batch axis B
 (``runner.batch_states``); ``init_state`` builds one unbatched sequence.
@@ -130,26 +130,45 @@ def torch_dtype(cfg: VIOConfig) -> torch.dtype:
 
 
 def check_supported(cfg: VIOConfig):
-    """Raise on configurations whose code paths are not ported yet."""
+    """Raise on configurations whose code paths are not ported yet, naming
+    the ROADMAP.md item (queue A) that brings each."""
     if cfg.covariance_form != "sqrt" or cfg.propagation_mode != "fast":
         raise NotImplementedError(
             "xivo_tpu_torch runs covariance_form='sqrt' with "
             "propagation_mode='fast'; the full covariance form and the "
-            "reference/batched propagation come with slice 2")
+            "reference/batched propagation come with ROADMAP A.16")
     if cfg.online_camera_calib:
         raise NotImplementedError(
-            "online camera calibration comes with slice 2")
-    slice2 = ["use_OOS", "clone_frame_groups", "use_fej",
-              "approximate_init_covariance", "use_depth_opt",
-              "use_1pt_RANSAC", "use_huber", "use_oc", "use_oc_meas"]
-    on = [k for k in slice2 if getattr(cfg, k)]
+            "online camera calibration comes with ROADMAP A.16")
+    accuracy = ["use_OOS", "clone_frame_groups", "use_fej",
+                "approximate_init_covariance"]
+    on = [k for k in accuracy if getattr(cfg, k)]
     if on:
         raise NotImplementedError(
-            f"xivo_tpu_torch: {on} come with slice 2 (the accuracy config "
-            "and the other filter options)")
+            f"xivo_tpu_torch: {on} come with ROADMAP A.15 (the accuracy "
+            "config)")
+    options = ["use_depth_opt", "use_1pt_RANSAC", "use_huber", "use_oc",
+               "use_oc_meas"]
+    on = [k for k in options if getattr(cfg, k)]
+    if on:
+        raise NotImplementedError(
+            f"xivo_tpu_torch: {on} come with ROADMAP A.16 (the other filter "
+            "options)")
     if cfg.do_outlier_rejection:
         raise NotImplementedError(
-            "homography outlier rejection comes with slice 3 (image mode)")
+            "homography outlier rejection needs a seeded generator the "
+            "port does not carry yet; it comes with ROADMAP A.12")
+    if cfg.tracker_type.upper() == "MATCH":
+        raise NotImplementedError(
+            "the MATCH tracker comes with ROADMAP A.12")
+    if cfg.detector.upper() != "FAST":
+        raise NotImplementedError(
+            f"detector {cfg.detector!r}: only FAST is ported; the others "
+            "come with ROADMAP A.12")
+    if cfg.descriptor_type.lower() != "brief":
+        raise NotImplementedError(
+            f"descriptor {cfg.descriptor_type!r}: only BRIEF is ported; the "
+            "others come with ROADMAP A.12")
     cam_mod._check(cam_mod.MODEL_IDS[cfg.cam_model])
 
 

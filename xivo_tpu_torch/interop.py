@@ -5,7 +5,8 @@ as numpy arrays (``jax.tree.map(np.asarray, s)``), batched or not, and
 builds the port's state; ``state_to_numpy`` goes back to numpy with the
 reference's dtypes (int32 indices, uint32 descriptors). Fields are matched
 by name; the reference's PRNG ``key`` has no counterpart and is skipped.
-Nothing here imports JAX.
+``frontend_from_numpy``/``frontend_to_numpy`` do the same for the image
+front end's state (the previous pyramid). Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .filter.state import FeatureTable, GroupTable, MotionState, VIOState
+from .frontend.tracker import FrontendState
 
 _NESTED = {"X": MotionState, "features": FeatureTable, "groups": GroupTable}
 
@@ -51,3 +53,17 @@ def state_to_numpy(s: VIOState) -> VIOState:
         return type(tree)(*(build(v) if isinstance(v, tuple) else conv(k, v)
                             for k, v in zip(tree._fields, tree)))
     return build(s)
+
+
+def frontend_from_numpy(nf, device="cpu") -> FrontendState:
+    """The reference's FrontendState (numpy leaves) -> the port's."""
+    return FrontendState(
+        pyr=tuple(torch.from_numpy(np.array(p)).to(device) for p in nf.pyr),
+        initialized=torch.from_numpy(np.array(nf.initialized)).to(device))
+
+
+def frontend_to_numpy(fes: FrontendState) -> FrontendState:
+    """The port's FrontendState -> numpy leaves."""
+    return FrontendState(
+        pyr=tuple(p.detach().cpu().numpy() for p in fes.pyr),
+        initialized=fes.initialized.detach().cpu().numpy())

@@ -16,24 +16,17 @@ PyTorch version beside each kernel (which mirrors the reference's
 ``_chol_fallback``/``_tri_inv_fallback``); a CUDA tensor launches the
 kernel or raises. The kernels are built with ``nvcc`` at the first CUDA
 call (never at import) into ``xivo_tpu_torch/_build/`` and loaded with
-``ctypes``.
+``ctypes`` (``ops/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
+from . import _build
+
 _FLOOR = 1e-30
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "lanes_chol.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "_build")
 
 
 # ---------------------------------------------------------------------------
@@ -71,86 +64,17 @@ def chol_inv_plain(G):
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-class _Library:
-    """The compiled kernel library: built and loaded once per process, its
-    kernels' shared-memory limits set once per device."""
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_LIB = _build.Library(
+    "lanes_chol",
+    {"xivo_chol_f32": [_p, _p, _i, _i, _p],
+     "xivo_chol_inv_f32": [_p, _p, _p, _i, _i, _p],
+     "xivo_tri_inv_f32": [_p, _p, _i, _i, _p]},
+    init="xivo_lanes_chol_init")   # shared-memory limits, once per device
 
-    def __init__(self):
-        self._lib = None
-        self._ready = set()
-        self._lock = threading.Lock()
-
-    def get(self, device: torch.device):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load(build())
-            if device.index not in self._ready:
-                with torch.cuda.device(device):
-                    err = self._lib.xivo_lanes_chol_init()
-                if err != 0:
-                    raise RuntimeError(
-                        f"lanes_chol: kernel set-up failed (CUDA error {err})")
-                self._ready.add(device.index)
-            return self._lib
-
-    @staticmethod
-    def _load(path):
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xivo_lanes_chol_init.argtypes = []
-        lib.xivo_chol_f32.argtypes = [p, p, i, i, p]
-        lib.xivo_chol_inv_f32.argtypes = [p, p, p, i, i, p]
-        lib.xivo_tri_inv_f32.argtypes = [p, p, i, i, p]
-        for fn in (lib.xivo_lanes_chol_init, lib.xivo_chol_f32,
-                   lib.xivo_chol_inv_f32, lib.xivo_tri_inv_f32):
-            fn.restype = i
-        return lib
-
-
-_LIB = _Library()
-
-
-def _nvcc():
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels of xivo_tpu_torch "
-                       "are built from source at first use")
-
-
-def build() -> str:
-    """Compile csrc/lanes_chol.cu for sm_90a (once per source content) and
-    return the shared library's path."""
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
-    out = os.path.join(_BUILD_DIR, f"liblanes_chol_{tag}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-class Kernel:
-    """A wrapper's launch counter: ``launches`` grows by one at each
-    kernel launch, and nowhere else."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-
-CHOL = Kernel("chol_lanes")
-CHOL_INV = Kernel("chol_inv_lanes")
-TRI_INV = Kernel("tri_inv_lanes")
+CHOL = _build.Kernel("chol_lanes")
+CHOL_INV = _build.Kernel("chol_inv_lanes")
+TRI_INV = _build.Kernel("tri_inv_lanes")
 KERNELS = (CHOL, CHOL_INV, TRI_INV)
 
 
@@ -163,18 +87,6 @@ def _check_input(X):
         raise ValueError("expected a contiguous tensor")
 
 
-def _launched(err: int, kernel: Kernel):
-    """Count a launch, or raise: also where m is too large for one block's
-    shared memory (the launch is then invalid)."""
-    if err != 0:
-        raise RuntimeError(f"{kernel.name}: CUDA launch failed (error {err})")
-    kernel.launches += 1
-
-
-def _stream(X):
-    return torch.cuda.current_stream(X.device).cuda_stream
-
-
 def chol_lanes(G: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky of (B, m, m) PSD matrices (masked-pivot contract)."""
     if G.device.type == "cpu":
@@ -184,8 +96,8 @@ def chol_lanes(G: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(G)
     with torch.cuda.device(G.device):
         err = _LIB.get(G.device).xivo_chol_f32(
-            G.data_ptr(), out.data_ptr(), B, m, _stream(G))
-    _launched(err, CHOL)
+            G.data_ptr(), out.data_ptr(), B, m, _build.stream(G))
+    CHOL.launched(err)
     return out
 
 
@@ -199,8 +111,9 @@ def chol_inv_lanes(G: torch.Tensor):
     Linv = torch.empty_like(G)
     with torch.cuda.device(G.device):
         err = _LIB.get(G.device).xivo_chol_inv_f32(
-            G.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, m, _stream(G))
-    _launched(err, CHOL_INV)
+            G.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, m,
+            _build.stream(G))
+    CHOL_INV.launched(err)
     return L, Linv
 
 
@@ -214,6 +127,6 @@ def tri_inv_lanes(L: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(L)
     with torch.cuda.device(L.device):
         err = _LIB.get(L.device).xivo_tri_inv_f32(
-            L.data_ptr(), out.data_ptr(), B, m, _stream(L))
-    _launched(err, TRI_INV)
+            L.data_ptr(), out.data_ptr(), B, m, _build.stream(L))
+    TRI_INV.launched(err)
     return out

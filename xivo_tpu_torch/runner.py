@@ -3,7 +3,8 @@
 ``pack_frame_inputs`` packs a host stream into numpy arrays (bit-equal to
 the reference's packing); ``run_batch`` moves B packed streams to the
 device and runs T frames as a Python loop over ``vio_frame`` with the
-batch axis written out. The loop reads nothing back to the host until
+batch axis written out. ``run_batch_image`` does the same for image mode
+over ``vio_frame_image``. The loops read nothing back to the host until
 the last frame has been enqueued.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from .filter.config import VIOConfig
 from .filter.pipeline import StepOutputs, vio_frame
 from .filter.state import VIOState, init_state, tree_map
+from .frontend.tracker import FrontendState, init_frontend, vio_frame_image
 
 
 class FrameInputs(NamedTuple):
@@ -71,10 +73,40 @@ def inputs_to_device(fis: FrameInputs, device) -> FrameInputs:
     return FrameInputs(*(conv(a) for a in fis))
 
 
+class ImageInputs(NamedTuple):
+    """Per-frame image-mode inputs; arrays lead with the frame axis T (and,
+    batched, with B before it)."""
+    gyro: np.ndarray        # (T, KI, 3)
+    accel: np.ndarray       # (T, KI, 3)
+    imu_dt: np.ndarray      # (T, KI)
+    frame_dt: np.ndarray    # (T,)
+    image: np.ndarray       # (T, H, W) float32
+
+
+def image_inputs_to_device(fi: ImageInputs, device, batch: int = None):
+    """Image-mode host inputs -> tensors on ``device``, in one copy before
+    the frame loop. With ``batch``, fi is one (T, ...) stream and every
+    sequence of the batch sees it: the result is its (B, T, ...) expand,
+    a view, not B copies. Without, fi is already (B, T, ...)."""
+    def conv(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return t if batch is None else t.expand((batch,) + t.shape)
+    return ImageInputs(*(conv(a) for a in fi))
+
+
 def batch_states(cfg: VIOConfig, B: int, device="cuda") -> VIOState:
     """B copies of the initial state (leading batch axis)."""
     s = init_state(cfg, device)
     return tree_map(lambda x: x.expand((B,) + x.shape).clone(), s)
+
+
+def batch_frontend_states(cfg: VIOConfig, B: int,
+                          device="cuda") -> FrontendState:
+    """B copies of the initial front-end state (leading batch axis)."""
+    fes = init_frontend(cfg, device)
+    return FrontendState(
+        pyr=tuple(p.expand((B,) + p.shape).clone() for p in fes.pyr),
+        initialized=fes.initialized.expand(B).clone())
 
 
 def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs):
@@ -94,3 +126,16 @@ def make_batch_runner(cfg: VIOConfig):
     def run(states: VIOState, fis: FrameInputs):
         return run_batch(cfg, states, inputs_to_device(fis, states.P.device))
     return run
+
+
+def run_batch_image(cfg: VIOConfig, states: VIOState, fes: FrontendState,
+                    fis: ImageInputs):
+    """Run B image-mode sequences of T frames. fis: (B, T, ...) tensors on
+    the states' device. Returns (final state, final front-end state,
+    StepOutputs stacked (B, T, ...))."""
+    s = states
+    outs = []
+    for t in range(fis.frame_dt.shape[1]):
+        s, fes, out = vio_frame_image(cfg, s, fes, *(a[:, t] for a in fis))
+        outs.append(out)
+    return s, fes, StepOutputs(*(torch.stack(o, dim=1) for o in zip(*outs)))

@@ -61,6 +61,18 @@ IMG_CFG["max_depth"] = 40.0
 # subfilter has actually observed their depth
 IMG_CFG["max_depth_var_for_admission"] = 0.01
 
+# the image benchmark's world (scripts/bench_image.py::build_frames, the
+# pinhole variant): IMG_CFG on a 512x512 camera with the TUM-VI KLT
+# settings, run at IMG_BENCH_DIMS (a 128-row track table, D = 228)
+IMG_BENCH_CFG = dict(IMG_CFG)
+IMG_BENCH_CFG["camera_cfg"] = {"model": "pinhole", "rows": 512, "cols": 512,
+                               "fx": 191.0, "fy": 191.0, "cx": 256.0,
+                               "cy": 256.0}
+IMG_BENCH_CFG["tracker_cfg"] = dict(
+    IMG_CFG["tracker_cfg"],
+    KLT={"win_size": 15, "max_level": 4, "max_iter": 15, "eps": 0.01})
+IMG_BENCH_DIMS = {"nf_rows": 128, "ng_rows": 64}
+
 # the room1-shaped 512x512 EQUIDISTANT camera (TUM-VI fisheye regime,
 # cfg/tumvi_cam0.json) — the distortion-model-bearing variant of the
 # bench image stage (round-4 verdict item 6)
