@@ -40,12 +40,43 @@ image path (slice 2):
    (``tests/test_image_vio.py``: final error below 5 m, median below 3 m,
    at least 20 tracks from frame 10 on), 4 launches of B4 and B5 per
    frame and one of B1-B3;
-9. where the time goes, for both main paths: ``torch.profiler`` over ten
-   frame steps (frames 30-39) gives the device's busy share and its time
-   by kernel, and the same frames run once more with a synchronize
-   around each stage of the frame step give each stage's time (the image
-   tracker's stages, from ``build_pyramid`` to BRIEF's ``extract``, are
-   inside ``tracker_image``).
+9. where the time goes, for the three main paths: ``torch.profiler``
+   over ten frame steps (frames 30-39; the mapped path's 131-140) gives
+   the device's busy share and its time by kernel, and the same frames
+   run once more with a synchronize around each stage of the frame step
+   give each stage's time (the image tracker's stages, from
+   ``build_pyramid`` to BRIEF's ``extract``, are inside
+   ``tracker_image``; the mapped step's ``retire_features`` counts both
+   of its calls, and ``_keyframe_insert`` includes the second);
+mapped path (slice 3):
+10. hold the Hamming nearest-neighbour kernel (B6) against its plain
+   version, exactly, on the queries and map tables of the three searches
+   of frame 130 of the mapped main path (taken in a run of its own, before
+   phase 12) and on random
+   descriptors with planted copies, duplicate map rows (ties), an invalid
+   tail and an all-invalid sequence at M = 20000; time kernel and plain
+   version at both query widths (256 retiring rows, 30 in-state slots);
+11. check the CUDA mapped path against the port's CPU mapped path at full
+   width as configured (B = 2, 60 frames, closures eligible after 20
+   frames, 2048-entry maps, fusion on retirement on, the same RANSAC draws
+   on both): poses within 1e-3 m, closures from the same frame on and
+   totals within 2 %, every retired row fused or inserted alike (map count
+   + fusions equal) and at most 10 % of the fusion decisions flipped (see
+   MAP_FLIP_SHARE); then ``retire_features`` with fusion from that run's
+   state on both devices: tables equal, positions within 1e-2 m in
+   float32 and 1e-9 m in float64;
+12. run the mapped PCW path: B = 64 sequences of the 20 s "loop" stream
+   (T = 400) in one call, 20000-entry maps,
+   ``scripts/diag_kidnap_pcw.py``'s mapper settings without the kick,
+   counters at 0 and the sync debug mode on;
+   require finite poses, ATE-RMSE of sequence 0 below 0.15 m, more than
+   100 closure rows in sequence 0, a map count above 0, three B6 launches
+   a frame, one of B1 and two of B2 and B3;
+13. one ``refine_map`` job at ``scripts/run_longhorizon_mapped.py``'s
+   sizes (4096 landmarks, 8 observations, 256 keyframes) on a synthetic
+   map: a finite chi2 history that never rises and falls;
+14. a few frames of the image mapped path (B = 2, 512 x 512) with the
+   launches of B1-B6 counted.
 
 The last lines are the kernels' JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
@@ -104,12 +135,42 @@ PROFILE_FRAMES = (30, 40)   # the window that phase 9 profiles
 DEV = "cuda"            # the card every phase runs on
 # the kernels of csrc/*.cu, as the profiler names them
 OWN_KERNELS = ("chol_kernel", "chol_inv_kernel", "tri_inv_kernel",
-               "templates_kernel", "gn_kernel")
+               "templates_kernel", "gn_kernel", "hamming_nn_kernel")
 REPLACES = {"chol_lanes": "xivo_tpu/ops/lanes_chol.py:103",
             "chol_inv_lanes": "xivo_tpu/ops/lanes_chol.py:108",
             "tri_inv_lanes": "xivo_tpu/ops/lanes_chol.py:133",
             "lk_sample_templates": "xivo_tpu/ops/lk_pallas.py:107",
-            "lk_gn_tracks": "xivo_tpu/ops/lk_pallas.py:60"}
+            "lk_gn_tracks": "xivo_tpu/ops/lk_pallas.py:60",
+            "hamming_nn": "xivo_tpu/ops/hamming_pallas.py:34"}
+
+MAP_B = 64
+MAP_TOTAL_TIME = 20.0   # the "loop" stream of diag_kidnap_pcw: T = 400
+MAP_ATE_BOUND = 0.15    # tests/test_mapped_vio.py:42
+MAP_MIN_CLOSURES = 100  # tests/test_headline_micro.py:50
+MAP_CAPTURE_FRAME = 130
+MAP_PROFILE_FRAMES = (MAP_CAPTURE_FRAME + 1, MAP_CAPTURE_FRAME + 11)
+MAP_CMP_FRAMES, MAP_CMP_CAPACITY, MAP_CMP_AGE = 60, 2048, 20
+MAP_PATH_TOL, MAP_CLOSURE_SHARE = 1e-3, 0.02
+MAP_POSE_EPS = 1e-5     # poses this far apart count as parted (report)
+# Fusion on retirement intersects covariances that may be nearly singular
+# (a gauge feature's is rank 1): in float32 a rounding difference between
+# the card and the CPU moves a fused position by up to ~1e-3 m (0.0012 m
+# read on the H100 from the state after 12 frames, in
+# tests/test_torch_cuda.py), and a position near the 0.5 m merge radius
+# may then fuse on one device and insert on the other (7 of ~175 fusions
+# in 60 frames, read on the H100). So over the 60 frames the fusion
+# decisions that flip stay within 10 % of the fusions, with every retired
+# row fused or inserted on both (count + fusions equal); from one state,
+# the tables agree exactly and the fused positions within 1e-2 m (1/50 of
+# the radius) in float32 and 1e-9 m in float64, where rounding is too
+# small to grow that far.
+MAP_FLIP_SHARE = 0.1
+MAP_FUSE_TOL32, MAP_FUSE_TOL64 = 1e-2, 1e-9
+IMG_MAP_FRAMES = 8
+# B6's bound: population counts at 16 results a clock per SM (the CUDA
+# C++ Programming Guide's arithmetic-instruction throughput table,
+# compute capability 9.0), on 132 SMs at the card's maximum SM clock
+POPC_PER_CLK_SM, N_SMS = 16, 132
 
 
 def build_kernels():
@@ -789,8 +850,9 @@ def where_time_goes(torch, label, run, stages, n_frames):
         + " a step", flush=True)
 
 
-def breakdown_phase(torch, pcw_cfg):
-    """Phase 9: where the frame step's time goes, on both main paths."""
+def breakdown_phase(torch, pcw_cfg, mapped):
+    """Phase 9: where the frame step's time goes, on the three main paths;
+    `mapped` is (config, (states, maps) before the window, window)."""
     from xivo_tpu_torch.filter import pipeline
     from xivo_tpu_torch.frontend import brief, tracker
     from xivo_tpu_torch.runner import run_batch, run_batch_image
@@ -819,6 +881,396 @@ def breakdown_phase(torch, pcw_cfg):
          (tracker, "fast_score"), (tracker, "select_topk"),
          (brief, "extract"), (tracker, "update_step")], n)
 
+    from xivo_tpu_torch.map import integration
+    from xivo_tpu_torch.runner import run_batch_mapped
+    mcfg, (s, ms), win = mapped
+    n = win.frame_dt.shape[1]
+    where_time_goes(
+        torch, f"mapped B={MAP_B}",
+        lambda: run_batch_mapped(mcfg, s, ms, win),
+        [(integration, "propagate_frame"),
+         (integration, "tracker_pointcloud"),
+         (integration, "retire_features"), (integration, "update_step"),
+         (integration, "_keyframe_insert"), (integration, "close_loop")], n)
+
+
+# ---------------------------------------------------------------------------
+# the mapped path (map, loop closure, bundle adjustment) and B6
+# ---------------------------------------------------------------------------
+
+def mapped_config(**over):
+    """The mapped PCW config: diag_kidnap_pcw.py's mapper settings."""
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.sim.configs import PCW_CFG
+    kw = dict(dtype="float32", sim_initialize_depths=True,
+              propagation_mode="fast", covariance_form="sqrt",
+              use_mapper=True, lc_keyframe_every=8, lc_min_age_frames=120,
+              lc_nn_dist_thresh=5, lc_min_matches=5, X_Vsb=(0.9, 0.0, 0.45))
+    kw.update(over)
+    return config_from_json(PCW_CFG, **kw)
+
+
+def mapped_stream(cfg):
+    from xivo_tpu_torch.sim.stream import build_pcw_stream
+    return build_pcw_stream(cfg, total_time=MAP_TOTAL_TIME, noise_px=0.25,
+                            motion="loop", n_points=600)
+
+
+def make_mapped_run(cfg, torch, device, batch, stream, frames=None,
+                    capacity=None):
+    """(states, maps, inputs, gt) for `batch` copies of the loop stream."""
+    from xivo_tpu_torch.runner import batch_maps, inputs_to_device
+    fi, gt = stream
+    if frames is not None:
+        fi = type(fi)(*(a[:frames] for a in fi))
+    fib = inputs_to_device(type(fi)(*(
+        np.broadcast_to(a, (batch,) + a.shape) for a in fi)), device)
+    maps = batch_maps(capacity or cfg.map_capacity, batch, device,
+                      dtype=torch.float32)
+    return seeded_states(cfg, torch, device, batch, gt), maps, fib, gt
+
+
+def window(fib, lo, hi):
+    return type(fib)(*(x[:, lo:hi] for x in fib))
+
+
+def max_sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out)
+
+
+def hamming_bound(torch, q, desc, valid, clock_mhz):
+    """What the function must move and do on this input: the queries and
+    the mask read once, the words of the valid entries only (an invalid
+    entry's words decide nothing), dist and idx written once (int64 words,
+    bool mask); population counts for the valid entries only."""
+    B, F, W = q.shape
+    n_valid = int(valid.sum())
+    n_bytes = (q.numel() + n_valid * W) * 8 + valid.numel() + 2 * B * F * 8
+    n_popc = W * F * n_valid
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_popc / (POPC_PER_CLK_SM * N_SMS * clock_mhz * 1e6) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", n_bytes, n_popc)
+
+
+def random_hamming_inputs(torch, B, M, F, seed):
+    """Random descriptors with F // 2 queries planted as exact copies of
+    map rows 5000..., those rows repeated at 15000... (ties: the first
+    copy must win), copies in an invalid tail that must not be found, and
+    sequence 1 all invalid."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+
+    def words(*shape):
+        return torch.randint(0, 2 ** 32, shape, generator=g, device=DEV,
+                             dtype=torch.int64)
+    desc, q = words(B, M, 8), words(B, F, 8)
+    h = F // 2
+    desc[:, 15000:15000 + h] = desc[:, 5000:5000 + h]
+    q[:, :h] = desc[:, 5000:5000 + h]
+    desc[:, M - h:] = q[:, F - h:]
+    valid = torch.ones((B, M), dtype=torch.bool, device=DEV)
+    valid[:, M - 2 * h:] = False
+    valid[1] = False
+    return q.contiguous(), desc.contiguous(), valid.contiguous()
+
+
+def check_hamming(torch, hm, captured):
+    """Phase 10: B6 against its plain version, exactly; times."""
+    clock = max_sm_clock_mhz()
+    real = captured
+    rnd = [random_hamming_inputs(torch, MAP_B, 20000, F, seed=F)
+           for F in (256, 30)]
+    n_q = n_diff = err = 0
+    for kind, (q, d, v) in [("real", a) for a in real] + [
+            ("random", a) for a in rnd]:
+        gd, gi = hm.hamming_nn(q, d, v)
+        pd, pi = hm.hamming_nn_plain(q, d, v)
+        torch.cuda.synchronize()
+        n_q += gd.numel()
+        n_diff += int(((gd != pd) | (gi != pi)).sum())
+        err = max(err, int((gd - pd).abs().max()), int((gi - pi).abs().max()))
+        if kind == "random":
+            h = q.shape[1] // 2
+            want = torch.arange(5000, 5000 + h, device=DEV)
+            if not (bool((gi[0, :h] == want).all())
+                    and bool((gd[0, :h] == 0).all())
+                    and bool((gd[1] == hm.NO_MATCH).all())
+                    and bool((gi[1] == 0).all())):
+                raise AssertionError("hamming_nn: planted copies, ties or "
+                                     "the all-invalid sequence wrong")
+    print(f"kernel hamming_nn: {n_q} queries over {len(real)} real and "
+          f"{len(rnd)} random inputs, {n_diff} differ from the plain "
+          f"version (required: 0), largest |difference| {err}", flush=True)
+    if n_diff:
+        raise AssertionError("hamming_nn disagrees with its plain version")
+    out = {}
+    # the retirement search (the 256-row table) and the closure search
+    # (the 30 in-state slots)
+    for label, args in (("wide", real[0]), ("narrow", real[-1])):
+        ms = cuda_ms(torch, lambda: hm.hamming_nn(*args))
+        plain_ms = cuda_ms(torch, lambda: hm.hamming_nn_plain(*args), reps=3)
+        bound_ms, bound_by, n_bytes, n_popc = hamming_bound(torch, *args,
+                                                            clock)
+        B, F = args[0].shape[:2]
+        print(f"kernel hamming_nn: B={B} F={F} M={args[1].shape[1]} "
+              f"({int(args[2].sum())} valid) ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms None bound_ms {bound_ms:.5f} "
+              f"({bound_by}: {n_bytes / 1e6:.1f} MB, {n_popc:.3e} popc at "
+              f"{clock:.0f} MHz)", flush=True)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, shape=[B, F, args[1].shape[1]])
+    wide, narrow = out["wide"], out["narrow"]
+    return dict(
+        name="hamming_nn", route="cuda",
+        source="xivo_tpu_torch/csrc/hamming.cu",
+        replaces=REPLACES["hamming_nn"], launches=None, max_abs_err=err,
+        differ=n_diff, n_queries=n_q,
+        ms=wide["ms"], plain_ms=wide["plain_ms"],
+        bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
+        library_ms=None, shape=wide["shape"], ms_narrow=narrow["ms"],
+        plain_ms_narrow=narrow["plain_ms"],
+        bound_ms_narrow=narrow["bound_ms"],
+        bound_by_narrow=narrow["bound_by"], shape_narrow=narrow["shape"])
+
+
+def compare_retire(torch, cfg, s, ms, dtype=None):
+    """retire_features with fusion on, on the card and on the CPU, from
+    the same state and map (a CUDA run's, its floating tensors cast to
+    `dtype` if given): every live non-gauge row is retired, so rows whose
+    descriptors the map holds fuse. Returns the CUDA map, the CPU map,
+    whether their tables are equal, the largest |difference| of the
+    positions (m) and of the covariances over their largest entry."""
+    from xivo_tpu_torch.filter.state import FS_GAUGE, tree_map
+    from xivo_tpu_torch.map.mapper import retire_features
+    c = dataclasses.replace(cfg, map_merge_on_retire=True)
+    if dtype is not None:
+        s, ms = tree_map(lambda x: x.to(dtype) if x.is_floating_point()
+                         else x, (s, ms))
+    fr = s.features
+    mask = fr.active & (fr.status != FS_GAUGE)
+    got = retire_features(c, s, ms, mask)
+    ref = retire_features(c, *tree_map(lambda x: x.cpu(), (s, ms, mask)))
+    got = tree_map(lambda x: x.cpu(), got)
+    same = all(torch.equal(getattr(got, k), getattr(ref, k)) for k in (
+        "desc", "gid", "epoch", "valid", "write_ptr", "count", "n_merged"))
+    dx = float((got.Xs - ref.Xs).abs().max())
+    dcov = float((got.cov - ref.cov).abs().max() / ref.cov.abs().max())
+    return got, ref, same, dx, dcov
+
+
+def compare_mapped_paths(torch, cfg, stream):
+    """Phase 11: the CUDA mapped path against the CPU one as configured
+    (fusion on retirement on), same draws; then retire_features with
+    fusion from the CUDA run's live state, on both devices, in float32
+    and in float64."""
+    from xivo_tpu_torch.map.p3p import N_HYPS
+    from xivo_tpu_torch.runner import run_batch_mapped
+    c = dataclasses.replace(cfg, lc_min_age_frames=MAP_CMP_AGE)
+    g = torch.Generator()
+    g.manual_seed(7)
+    u = torch.rand((2, MAP_CMP_FRAMES, N_HYPS, c.dims.n_features),
+                   generator=g, dtype=torch.float32)
+    res = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        s, ms, fib, _ = make_mapped_run(c, torch, dev, 2, stream,
+                                        frames=MAP_CMP_FRAMES,
+                                        capacity=MAP_CMP_CAPACITY)
+        s, ms, out, lcs = run_batch_mapped(c, s, ms, fib, uniforms=u.to(dev))
+        res[dev] = (s, ms, out.Tsb.cpu(), lcs.cpu())
+        print(f"mapped {dev} path: {MAP_CMP_FRAMES} frames in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    (s, ms, tg, lg), (_, mc, tc, lcc) = res[DEV], res["cpu"]
+    cg, cc = ms.count.cpu(), mc.count
+    ng, nc = ms.n_merged.cpu(), mc.n_merged
+    dpos = (tg - tc).abs().amax(dim=(0, 2))               # by frame
+    apart = torch.nonzero((dpos >= MAP_POSE_EPS)
+                          | (lg != lcc).any(dim=0)).flatten().tolist()
+    first = [[int(torch.nonzero(x[b])[0]) if bool(x[b].any()) else None
+              for b in range(2)] for x in (lg, lcc)]
+    tot_g, tot_c = int(lg.sum()), int(lcc.sum())
+    flips = int((ng - nc).abs().max())
+    print(f"mapped cuda vs cpu path (fusion on): max |dTsb| "
+          f"{float(dpos.max()):.3e} m; map count cuda {cg.tolist()} cpu "
+          f"{cc.tolist()}; fusions cuda {ng.tolist()} cpu {nc.tolist()}; "
+          f"first closure frame cuda {first[0]} cpu {first[1]}; closure rows "
+          f"cuda {tot_g} cpu {tot_c}; frames where poses part by "
+          f"{MAP_POSE_EPS} m or closure rows differ: {apart[:8]}"
+          f"{' ...' if len(apart) > 8 else ''}", flush=True)
+    if not (float(dpos.max()) < MAP_PATH_TOL
+            and torch.equal(cg + ng, cc + nc) and int(nc.min()) > 0
+            and flips <= MAP_FLIP_SHARE * int(nc.min())
+            and first[0] == first[1] and None not in first[0]
+            and abs(tot_g - tot_c) <= MAP_CLOSURE_SHARE * tot_c):
+        raise AssertionError("the CUDA mapped path disagrees with the CPU "
+                             "mapped path")
+    for dtype, tol in ((None, MAP_FUSE_TOL32), (torch.float64,
+                                                MAP_FUSE_TOL64)):
+        got, ref, same, dx, dcov = compare_retire(torch, c, s, ms, dtype)
+        fused = (ref.n_merged - mc.n_merged).tolist()
+        print(f"retire_features with fusion, cuda vs cpu, "
+              f"{ref.Xs.dtype}: {fused} fusions, tables "
+              f"{'equal' if same else 'DIFFER'}, max |dXs| {dx:.3e} m, "
+              f"covariance {dcov:.3e} of its largest entry (limit {tol} "
+              f"for both)", flush=True)
+        if not (same and min(fused) > 0 and dx < tol and dcov < tol):
+            raise AssertionError("retire_features' fusion differs between "
+                                 "the card and the CPU")
+
+
+def mapped_phases(torch, lc, hm):
+    """Phases 10-12: returns (the B6 JSON entry, launches on the mapped
+    main path, the state and maps before the profiled window, inputs)."""
+    from xivo_tpu_torch.runner import run_batch_mapped
+    cfg = mapped_config()
+    stream = mapped_stream(cfg)
+
+    # phase 11 (first: it also makes the path's device constants, which
+    # the counted run below must find made)
+    compare_mapped_paths(torch, cfg, stream)
+
+    # the inputs of frame 130's three searches, kept for phase 10, and
+    # the state after it, where phase 9's window starts, from a run
+    # outside the timed one
+    s, ms, fib, gt = make_mapped_run(cfg, torch, DEV, MAP_B, stream)
+    T = int(fib.frame_dt.shape[1])
+    a, (p, q) = MAP_CAPTURE_FRAME, MAP_PROFILE_FRAMES
+    st, m, _, _ = run_batch_mapped(cfg, s, ms, window(fib, 0, a), seed=1)
+    with Recorder(torch, hm, ["hamming_nn"]) as seen:
+        before = run_batch_mapped(cfg, st, m, window(fib, a, p), seed=2)[:2]
+    torch.cuda.synchronize()
+
+    # phase 12: the mapped main path, counted: one call, all T frames
+    (s, ms, outs, lcs), wall, launches = counted(
+        torch, lc.KERNELS + hm.KERNELS,
+        lambda: run_batch_mapped(cfg, s, ms, fib, seed=0))
+    Tsb = outs.Tsb.cpu().numpy()
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    err = np.linalg.norm(Tsb[0] - gt["Tsb"], axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    lcs = lcs.cpu().numpy()
+    count, merged = ms.count.cpu().numpy(), ms.n_merged.cpu().numpy()
+    first = int(np.argmax(lcs[0] > 0)) if lcs[0].any() else None
+    all_ate = np.sqrt(np.mean(np.linalg.norm(Tsb - gt["Tsb"][None], axis=2)
+                              ** 2, axis=1))
+    print(f"mapped main path: B={MAP_B} T={T} D={cfg.dims.full} maps of "
+          f"{cfg.map_capacity} wall {wall:.3f} s sequence-frames/s "
+          f"{MAP_B * T / wall:.1f} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{launches}", flush=True)
+    print(f"mapped main path, sequence 0: ATE-RMSE {ate:.5f} m (bound "
+          f"{MAP_ATE_BOUND}), final error {err[-1]:.5f} m, closure rows "
+          f"{int(lcs[0].sum())} (bound > {MAP_MIN_CLOSURES}) from frame "
+          f"{first}, map count {int(count[0])}, fusions {int(merged[0])}; "
+          f"all sequences: ATE-RMSE {all_ate.min():.5f}-{all_ate.max():.5f}"
+          f" m, closure rows {int(lcs.sum(1).min())}-"
+          f"{int(lcs.sum(1).max())}, map count {int(count.min())}-"
+          f"{int(count.max())}", flush=True)
+    if not (ate < MAP_ATE_BOUND and lcs[0].sum() > MAP_MIN_CLOSURES
+            and count.min() > 0):
+        raise AssertionError("mapped path outside its bounds")
+    expect = {"chol_lanes": T, "chol_inv_lanes": 2 * T,
+              "tri_inv_lanes": 2 * T, "hamming_nn": 3 * T}
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+
+    # phase 10: B6 against its plain version
+    entry = check_hamming(torch, hm, seen["hamming_nn"])
+    entry["launches"] = launches["hamming_nn"]
+    return entry, launches, cfg, before, window(fib, p, q)
+
+
+def synthetic_bigmap(torch, cfg, n_lm=4096, n_kf=256, obs=4, noise=0.05,
+                     seed=0):
+    """tests/test_bigmap.py's synthetic map at the long-horizon sizes:
+    keyframes along a line, each landmark seen by `obs` keyframes near
+    it; landmarks and all keyframes but the first two moved by noise."""
+    from xivo_tpu_torch.geom import so3
+    from xivo_tpu_torch.map.bigmap import init_bigmap
+    rng = np.random.default_rng(seed)
+    bm = init_bigmap(cfg, capacity=n_lm, obs_cap=8, kf_capacity=n_kf,
+                     dtype=torch.float32, device=DEV)
+    kf_R = so3.exp(torch.tensor(rng.normal(0, 0.05, (n_kf, 3)))).numpy()
+    kf_T = np.stack([0.4 * np.arange(n_kf) - 2.0,
+                     0.1 * rng.normal(size=n_kf), np.zeros(n_kf)], 1)
+    Xs = np.stack([rng.uniform(-2.0, 0.4 * n_kf - 2.0, n_lm),
+                   rng.uniform(-2, 2, n_lm), rng.uniform(4, 8, n_lm)], 1)
+    obs_kf = np.full((n_lm, 8), -1, np.int64)
+    obs_xn = np.zeros((n_lm, 8, 2))
+    for li in range(n_lm):
+        near = np.argsort(np.abs(kf_T[:, 0] - Xs[li, 0]))[:3 * obs]
+        for oi, k in enumerate(rng.choice(near, obs, replace=False)):
+            Xc = kf_R[k].T @ (Xs[li] - kf_T[k])
+            obs_kf[li, oi] = k
+            obs_xn[li, oi] = Xc[:2] / Xc[2]
+    kf_Tn = kf_T.copy()
+    kf_Tn[2:] += rng.normal(0, noise, (n_kf - 2, 3))
+
+    def dev(a, dt=torch.float32):
+        return torch.tensor(a, dtype=dt, device=DEV)[None]
+    return bm._replace(
+        Xs=dev(Xs + rng.normal(0, noise, Xs.shape)),
+        valid=torch.ones((1, n_lm), dtype=torch.bool, device=DEV),
+        obs_kf=dev(obs_kf, torch.int64), obs_xn=dev(obs_xn),
+        kf_R=dev(kf_R), kf_T=dev(kf_Tn),
+        kf_valid=torch.ones((1, n_kf), dtype=torch.bool, device=DEV),
+        write_ptr=bm.write_ptr[None], count=bm.count[None] + n_lm,
+        kf_ptr=bm.kf_ptr[None], kf_of_grow=bm.kf_of_grow[None],
+        kf_gid=bm.kf_gid[None], desc=bm.desc[None], epoch=bm.epoch[None])
+
+
+def refine_phase(torch, cfg):
+    """Phase 13: one refine_map job."""
+    from xivo_tpu_torch.map.bigmap import refine_map
+    bm = synthetic_bigmap(torch, cfg)
+    refine_map(cfg, bm, iters=1)             # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, chi2 = refine_map(cfg, bm, iters=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = chi2[0].double().cpu().numpy()
+    print(f"refine_map: 4096 landmarks x 256 keyframes, 8 iterations in "
+          f"{wall * 1e3:.1f} ms; chi2 {h[0]:.6e} -> {h[-1]:.6e}: "
+          f"{np.array2string(h, precision=4)}", flush=True)
+    if not (np.isfinite(h).all() and (np.diff(h) <= 0).all()
+            and h[-1] < h[0]):
+        raise AssertionError("refine_map's chi2 history rose or stalled")
+    return wall
+
+
+def image_mapped_phase(torch, kernels):
+    """Phase 14: a few frames of the image mapped path, counted."""
+    from xivo_tpu_torch.runner import batch_maps, run_batch_image_mapped
+    from xivo_tpu_torch.sim.image_stream import build_image_stream
+    cfg = dataclasses.replace(
+        image_config(), use_mapper=True, lc_keyframe_every=8,
+        lc_min_age_frames=120, lc_nn_dist_thresh=5, lc_min_matches=5)
+    stream = build_image_stream(cfg)
+    s, f, fib = make_image_run(cfg, torch, DEV, 2, stream,
+                               frames=IMG_MAP_FRAMES)
+    ms = batch_maps(cfg.map_capacity, 2, DEV)
+    (s, f, ms, outs, lcs), wall, launches = counted(
+        torch, kernels, lambda: run_batch_image_mapped(cfg, s, f, ms, fib))
+    T = IMG_MAP_FRAMES
+    print(f"image mapped path: B=2 T={T} 512x512 wall {wall:.3f} s map "
+          f"count {ms.count.tolist()} launches {launches}", flush=True)
+    if not torch.isfinite(outs.Tsb).all():
+        raise AssertionError("non-finite poses")
+    L = cfg.klt_max_level
+    expect = {"chol_lanes": T, "chol_inv_lanes": 2 * T,
+              "tri_inv_lanes": 2 * T, "lk_sample_templates": L * T,
+              "lk_gn_tracks": L * T, "hamming_nn": 3 * T}
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    return launches
+
 
 def main():
     import torch
@@ -828,6 +1280,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import xivo_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from xivo_tpu_torch.ops import lanes_chol as lc
+    from xivo_tpu_torch.ops import hamming as hm
     from xivo_tpu_torch.ops import lk as lko
 
     t_start = time.time()
@@ -843,10 +1296,20 @@ def main():
     kernels = pcw_phases(torch, lc)
     print(f"pcw phases done: {time.time() - t_start:.1f} s", flush=True)
     lk_kernels, img_launches = image_phases(torch, lc, lko)
-    breakdown_phase(torch, pcw_config())
+    print(f"image phases done: {time.time() - t_start:.1f} s", flush=True)
+    hm_kernel, map_launches, mcfg, before, win = mapped_phases(torch, lc, hm)
+    print(f"mapped phases done: {time.time() - t_start:.1f} s", flush=True)
+    refine_phase(torch, mcfg)
+    img_map_launches = image_mapped_phase(
+        torch, lc.KERNELS + lko.KERNELS + hm.KERNELS)
+    breakdown_phase(torch, pcw_config(), (mcfg, before, win))
+    del before
     for k in kernels:
         k["launches_image_path"] = img_launches[k["name"]]
-    kernels += lk_kernels
+    kernels += lk_kernels + [hm_kernel]
+    for k in kernels:
+        k["launches_mapped_path"] = map_launches.get(k["name"], 0)
+        k["launches_image_mapped_path"] = img_map_launches[k["name"]]
     print(f"elapsed: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

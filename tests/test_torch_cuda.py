@@ -18,14 +18,26 @@ and its positions within 2 eps = 0.02 px on the tracks that converged in
 both (the warp sums in another order, so a step within rounding of eps
 may stop one iteration earlier or later), and within ``chip_smoke``'s
 ``GN_UNCONV_TOL`` (0.1 px) on the tracks that are unconverged in both.
+Hamming kernel: exactly equal distances and indices (integer work), with
+ties, invalid entries, an all-invalid sequence and a sparse map (as a
+live map is: a few hundred valid entries of 20000); and a short mapped
+run at full width under the sync debug mode, with three launches a frame.
+The fusion of ``retire_features`` on the card against the CPU, from the
+same state and map: tables equal, positions (m) and covariances (of
+their largest entry) within ``chip_smoke``'s ``MAP_FUSE_TOL32`` in
+float32 and ``MAP_FUSE_TOL64`` in float64 (see there why they differ).
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GN_UNCONV_TOL, Recorder, texture
+from chip_smoke import (GN_UNCONV_TOL, MAP_FUSE_TOL32, MAP_FUSE_TOL64,
+                        Recorder,
+                        compare_retire, make_mapped_run, mapped_config,
+                        mapped_stream, random_hamming_inputs, texture)
 from xivo_tpu_torch.frontend import lk as flk
 from xivo_tpu_torch.frontend.image import build_pyramid
+from xivo_tpu_torch.ops import hamming as hm
 from xivo_tpu_torch.ops import lanes_chol as lc
 from xivo_tpu_torch.ops import lk as lko
 
@@ -177,3 +189,73 @@ def test_lk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         lko.gn_tracks(tp, T, T.transpose(1, 2), T, sc, pos, pos, 15)
 
+
+
+@pytest.mark.parametrize("B,M,F,share", [
+    (8, 20000, 256, 1.0), (8, 20000, 30, 1.0), (3, 20011, 300, 1.0),
+    (8, 20000, 256, 0.005), (8, 20000, 30, 0.005)])
+def test_hamming_kernel_matches_plain_version(cuda, B, M, F, share):
+    q, d, v = random_hamming_inputs(torch, B, M, F, seed=F + M)
+    # keep a share of the entries valid, and the planted rows
+    g = torch.Generator(device=d.device)
+    g.manual_seed(M)
+    keep = torch.rand(v.shape, generator=g, device=d.device) < share
+    keep[:, 5000:5000 + F // 2] = True
+    v = v & keep
+    n = hm.HAMMING.launches
+    gd, gi = hm.hamming_nn(q, d, v)
+    assert hm.HAMMING.launches == n + 1
+    pd, pi = hm.hamming_nn_plain(q, d, v)
+    torch.cuda.synchronize()
+    assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    # planted copies: distance 0 at the first of two equal map rows
+    h = F // 2
+    assert torch.equal(gi[0, :h], torch.arange(5000, 5000 + h,
+                                               device=gi.device))
+    assert bool((gd[0, :h] == 0).all())
+    assert bool((gd[1] == hm.NO_MATCH).all()) and bool((gi[1] == 0).all())
+
+
+def test_hamming_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, d, v = random_hamming_inputs(torch, 2, 20000, 30, seed=0)
+    with pytest.raises(TypeError):
+        hm.hamming_nn(q.int(), d, v)
+    with pytest.raises(ValueError):
+        hm.hamming_nn(q, d[:, :, :4], v)
+    with pytest.raises(ValueError):
+        hm.hamming_nn(q, d.transpose(0, 1).contiguous().transpose(0, 1), v)
+
+
+def test_mapped_run_never_waits_for_the_card(cuda):
+    from xivo_tpu_torch.runner import run_batch_mapped
+    cfg = mapped_config()
+    stream = mapped_stream(cfg)
+    T = 6
+    s, ms, fib, _ = make_mapped_run(cfg, torch, "cuda", 2, stream,
+                                    frames=T, capacity=2048)
+    run_batch_mapped(cfg, s, ms, fib)        # makes the device constants
+    torch.cuda.synchronize()
+    n = hm.HAMMING.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ms2, out, lcs = run_batch_mapped(cfg, s, ms, fib, seed=3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert hm.HAMMING.launches == n + 3 * T
+    assert bool(torch.isfinite(out.Tsb).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, MAP_FUSE_TOL32),
+                                       (torch.float64, MAP_FUSE_TOL64)])
+def test_retire_fusion_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    from xivo_tpu_torch.runner import run_batch_mapped
+    cfg = mapped_config()
+    stream = mapped_stream(cfg)
+    s, ms, fib, _ = make_mapped_run(cfg, torch, "cuda", 2, stream,
+                                    frames=12, capacity=2048)
+    s, ms, _, _ = run_batch_mapped(cfg, s, ms, fib)
+    got, ref, same, dx, dcov = compare_retire(torch, cfg, s, ms, dtype)
+    assert same
+    assert int((ref.n_merged - ms.n_merged.cpu()).min()) > 0
+    assert dx < tol and dcov < tol, (dx, dcov)

@@ -214,6 +214,10 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.frontend.tracker, xivo_tpu_torch.frontend.lk\n"
         "import xivo_tpu_torch.frontend.fast, xivo_tpu_torch.frontend.brief\n"
         "import xivo_tpu_torch.sim.render, xivo_tpu_torch.sim.image_stream\n"
+        "import xivo_tpu_torch.map, xivo_tpu_torch.map.mapper\n"
+        "import xivo_tpu_torch.map.p3p, xivo_tpu_torch.map.integration\n"
+        "import xivo_tpu_torch.map.bigmap, xivo_tpu_torch.ba.core\n"
+        "import xivo_tpu_torch.ops.hamming\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'xivo_tpu'\n"
         "       or m.startswith('xivo_tpu.')]\n"
@@ -227,15 +231,32 @@ def test_port_imports_no_jax():
 
 def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     from xivo_tpu_torch.filter.state import init_state
+    from xivo_tpu_torch.frontend.tracker import init_frontend
+    from xivo_tpu_torch.map.bigmap import init_bigmap
+    from xivo_tpu_torch.map.mapper import init_map
+    from xivo_tpu_torch.runner import batch_maps
     cfg = torch_cfg()
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_state(cfg)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        batch_states(cfg, 2)
     s = batch_states(cfg, 2, device="cpu")
     D = cfg.dims.full
     assert s.P.device.type == "cpu" and s.P.shape == (2, D, D + 3 * 8)
+    ms = batch_maps(16, 2, device="cpu")
+    bm = init_bigmap(cfg, 16, device="cpu")
+    ns, nm = interop.state_to_numpy(s), interop.map_to_numpy(ms)
+    nb = interop.bigmap_to_numpy(bm)
+    nf = interop.frontend_to_numpy(init_frontend(cfg, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (lambda: init_state(cfg), lambda: batch_states(cfg, 2),
+                  lambda: init_map(16), lambda: batch_maps(16, 2),
+                  lambda: init_bigmap(cfg, 16),
+                  lambda: interop.state_from_numpy(ns),
+                  lambda: interop.map_from_numpy(nm),
+                  lambda: interop.bigmap_from_numpy(nb),
+                  lambda: interop.frontend_from_numpy(nf)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    back = interop.map_from_numpy(nm, device="cpu")
+    assert back.desc.dtype == torch.int64 and back.desc.device.type == "cpu"
+    assert interop.state_from_numpy(ns, "cpu").P.device.type == "cpu"
 
 
 @pytest.mark.parametrize("option,item", [

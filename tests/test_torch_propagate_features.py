@@ -91,7 +91,7 @@ def test_propagate_frame_matches_reference():
     sj = jpf(cfg_j, s, jnp.asarray(gy), jnp.asarray(ac), jnp.asarray(idt),
              jnp.asarray(0.004))
     sb = jax.tree.map(lambda x: np.asarray(x)[None], s)
-    st = tpf(cfg_t, state_from_numpy(sb), t(gy)[None], t(ac)[None],
+    st = tpf(cfg_t, state_from_numpy(sb, "cpu"), t(gy)[None], t(ac)[None],
              t(idt)[None], t([0.004]))
     for k in JMotion._fields:
         close(getattr(st.X, k)[0], getattr(sj.X, k))

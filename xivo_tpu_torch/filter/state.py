@@ -4,8 +4,11 @@ Same fixed-capacity masked tables as the reference. Differences:
 
 * index and count fields are int64 (the reference uses int32);
 * ``FeatureTable.desc`` holds the 32-bit descriptor words in int64;
-* no PRNG key: the reference uses ``s.key`` only for the homography
-  RANSAC of the trackers, which this port does not carry yet.
+* no PRNG key: the reference draws from ``s.key`` for the homography
+  RANSAC of the trackers (not ported yet) and for the P3P RANSAC of loop
+  closure (``map/mapper.py:237``); the port's mapped steps take those
+  draws as an argument instead (``map/integration.py``), which the
+  mapped runners make with a seeded ``torch.Generator``.
 
 The filter functions take every field with a leading batch axis B
 (``runner.batch_states``); ``init_state`` builds one unbatched sequence.

@@ -4,11 +4,15 @@
 the reference's packing); ``run_batch`` moves B packed streams to the
 device and runs T frames as a Python loop over ``vio_frame`` with the
 batch axis written out. ``run_batch_image`` does the same for image mode
-over ``vio_frame_image``. The loops read nothing back to the host until
-the last frame has been enqueued.
+over ``vio_frame_image``; ``run_batch_mapped`` and
+``run_batch_image_mapped`` run the mapped steps (``map/integration.py``)
+with a map per sequence (``batch_maps``), drawing each frame's RANSAC
+uniforms on the device from a seeded ``torch.Generator``. The loops read
+nothing back to the host until the last frame has been enqueued.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -18,6 +22,9 @@ from .filter.config import VIOConfig
 from .filter.pipeline import StepOutputs, vio_frame
 from .filter.state import VIOState, init_state, tree_map
 from .frontend.tracker import FrontendState, init_frontend, vio_frame_image
+from .map.integration import vio_frame_image_mapped, vio_frame_mapped
+from .map.mapper import MapState, init_map
+from .map.p3p import N_HYPS
 
 
 class FrameInputs(NamedTuple):
@@ -100,6 +107,13 @@ def batch_states(cfg: VIOConfig, B: int, device="cuda") -> VIOState:
     return tree_map(lambda x: x.expand((B,) + x.shape).clone(), s)
 
 
+def batch_maps(capacity: int, B: int, device="cuda",
+               dtype=torch.float32) -> MapState:
+    """B empty maps of `capacity` entries (leading batch axis)."""
+    ms = init_map(capacity, dtype, device)
+    return tree_map(lambda x: x.expand((B,) + x.shape).clone(), ms)
+
+
 def batch_frontend_states(cfg: VIOConfig, B: int,
                           device="cuda") -> FrontendState:
     """B copies of the initial front-end state (leading batch axis)."""
@@ -117,7 +131,7 @@ def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs):
     for t in range(fis.frame_dt.shape[1]):
         s, out = vio_frame(cfg, s, *(a[:, t] for a in fis))
         outs.append(out)
-    return s, StepOutputs(*(torch.stack(o, dim=1) for o in zip(*outs)))
+    return s, _stack(outs)
 
 
 def make_batch_runner(cfg: VIOConfig):
@@ -138,4 +152,52 @@ def run_batch_image(cfg: VIOConfig, states: VIOState, fes: FrontendState,
     for t in range(fis.frame_dt.shape[1]):
         s, fes, out = vio_frame_image(cfg, s, fes, *(a[:, t] for a in fis))
         outs.append(out)
-    return s, fes, StepOutputs(*(torch.stack(o, dim=1) for o in zip(*outs)))
+    return s, fes, _stack(outs)
+
+
+def _draws(cfg: VIOConfig, s: VIOState, uniforms, seed: int):
+    """Frame t -> its RANSAC uniforms (B, n_hyps, F): the given
+    (B, T, n_hyps, F) tensor's, or fresh ones from a generator on the
+    states' device seeded with `seed`."""
+    if uniforms is not None:
+        return lambda t: uniforms[:, t]
+    gen = torch.Generator(device=s.P.device)
+    gen.manual_seed(seed)
+    shape = (s.P.shape[0], N_HYPS, cfg.dims.n_features)
+    return lambda t: torch.rand(shape, generator=gen, dtype=s.P.dtype,
+                                device=s.P.device)
+
+
+def _stack(outs):
+    return StepOutputs(*(torch.stack(o, dim=1) for o in zip(*outs)))
+
+
+def _run_mapped(step, carry, fis, draw):
+    """The mapped frame loop: ``step(*carry, *inputs of frame t, draws)``
+    returns (*carry, StepOutputs, closure rows) for every frame t."""
+    outs, lcs = [], []
+    for t in range(fis.frame_dt.shape[1]):
+        *carry, out, n_lc = step(*carry, *(a[:, t] for a in fis), draw(t))
+        outs.append(out)
+        lcs.append(n_lc)
+    return (*carry, _stack(outs), torch.stack(lcs, dim=1))
+
+
+def run_batch_mapped(cfg: VIOConfig, states: VIOState, maps: MapState,
+                     fis: FrameInputs, seed: int = 0, uniforms=None):
+    """Run B mapped sequences of T frames (``vio_frame_mapped``). fis:
+    (B, T, ...) tensors on the states' device; ``uniforms`` (B, T, n_hyps,
+    F), if given, replaces the seeded draws. Returns (final state, final
+    map, StepOutputs stacked (B, T, ...), closure rows (B, T))."""
+    return _run_mapped(partial(vio_frame_mapped, cfg), (states, maps), fis,
+                       _draws(cfg, states, uniforms, seed))
+
+
+def run_batch_image_mapped(cfg: VIOConfig, states: VIOState,
+                           fes: FrontendState, maps: MapState,
+                           fis: ImageInputs, seed: int = 0, uniforms=None):
+    """``run_batch_mapped`` for image mode (``vio_frame_image_mapped``).
+    Returns (state, front-end state, map, StepOutputs, closure rows)."""
+    return _run_mapped(partial(vio_frame_image_mapped, cfg),
+                       (states, fes, maps), fis,
+                       _draws(cfg, states, uniforms, seed))
