@@ -76,9 +76,38 @@ mapped path (slice 3):
    sizes (4096 landmarks, 8 observations, 256 keyframes) on a synthetic
    map: a finite chi2 history that never rises and falls;
 14. a few frames of the image mapped path (B = 2, 512 x 512) with the
-   launches of B1-B6 counted.
+   launches of B1-B6 counted;
+slice 4 (B7 and the accuracy config; phases 15-16 run first, 17-19
+right after phase 5, whose ATE they use):
+15. hold the blocked Cholesky kernel (B7) against its plain version and
+   against B1's kernel, row by row as phase 3 does, at (256, 228, 228)
+   and (256, 60, 60) on random PSD matrices with planted zero rows and on
+   the same with the dead rows made unit; time kernel, plain version, B1
+   and ``cholesky_ex``, and print B7's bound;
+16. the linear-algebra profile (``xivo_tpu_torch.tools.profile_linalg``,
+   B7's entry point) at B = 256, PROFILE_ITERS chained calls a line,
+   B7's launches counted;
+17. check the recommended accuracy config's CUDA path (OOS updates, pose
+   cloning, pose-only FEJ) against its CPU path at full width on B = 2
+   for ACC_CMP_FRAMES frames: poses within 1e-3 m, and the OOS rows
+   applied, in-state groups and features and OOS drops equal frame by
+   frame;
+18. run the accuracy path: default Dims, B = 256, T = 100, counters at 0
+   and the sync debug mode on; require finite poses, OOS rows applied in
+   sequence 0, an ATE-RMSE of sequence 0 below max(1.25 x phase 5's,
+   0.015 m) (``tests/test_e2e_pcw.py:223``), and B1, B2, B3 launched 1, 3
+   and 3 times a frame (the 60-row instate update and the two 120-row
+   blocks of the 240-row OOS stack), B7 never;
+19. the kernels at the OOS shapes: B2 and B3 on the 120-row blocks of
+   the first 20 frames, and B1 at (D + 1)^2 = 229^2 over 20 frames with
+   compression forced (``compression_trigger_ratio=0.5``, counted: B1
+   twice a frame), each held against its plain version on the inputs of
+   the frames where OOS rows were applied (from frame 8 on; B1 by its
+   backward error, see BACKWARD_TOL) and timed.
 
-The last lines are the kernels' JSON line, the card line, and
+Each kernel's entry in the JSON line carries its launches on every
+path (B7's ``launches`` are the profile's; 0 on the filter paths). The
+last lines are the kernels' JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
 exits 1.
 """
@@ -107,6 +136,14 @@ F32_FLOPS = 67e12       # H100 SXM float32 peak outside the tensor cores
 # ROW_TOL + ROW_TOL_SCALE x the plain float32 version's own row error
 # there, and never above ROW_TOL_CAP.
 ROW_TOL, ROW_TOL_SCALE, ROW_TOL_CAP = 1e-5, 4.0, 1e-3
+# B1 at 229 factors OOS measurement compression's bordered Gram of a stack
+# of rank ~27 plus a 1e-6 relative jitter: its rows past the rank are set
+# by the jitter, and a float32 factorization gets them to a few percent
+# (the plain float32 version's rows there differ from float64 by ~1e-2).
+# The update reads only L L^T, so there the kernel is held by its backward
+# error max|L L^T - G| / max|G|: within BACKWARD_TOL + ROW_TOL_SCALE x the
+# plain float32 version's own; its row error is printed, not held.
+BACKWARD_TOL = 1e-6
 
 IMG_B = 16              # bench.py's IMG_BATCH default
 IMG_CAPTURE_FRAMES = 3
@@ -137,6 +174,7 @@ DEV = "cuda"            # the card every phase runs on
 OWN_KERNELS = ("chol_kernel", "chol_inv_kernel", "tri_inv_kernel",
                "templates_kernel", "gn_kernel", "hamming_nn_kernel")
 REPLACES = {"chol_lanes": "xivo_tpu/ops/lanes_chol.py:103",
+            "chol_blocked": "xivo_tpu/ops/chol_pallas.py:37",
             "chol_inv_lanes": "xivo_tpu/ops/lanes_chol.py:108",
             "tri_inv_lanes": "xivo_tpu/ops/lanes_chol.py:133",
             "lk_sample_templates": "xivo_tpu/ops/lk_pallas.py:107",
@@ -167,6 +205,16 @@ MAP_POSE_EPS = 1e-5     # poses this far apart count as parted (report)
 MAP_FLIP_SHARE = 0.1
 MAP_FUSE_TOL32, MAP_FUSE_TOL64 = 1e-2, 1e-9
 IMG_MAP_FRAMES = 8
+# slice 4: B7's widths (the linear-algebra profile's), the profile's chain
+# length, and the accuracy config's phases: CUDA against CPU on B = 2 for
+# ACC_CMP_FRAMES frames, compression forced for ACC_COMPRESS_FRAMES at
+# full width; its ATE bound is tests/test_e2e_pcw.py:223's
+CHOL_WIDTHS = (228, 60)
+PROFILE_ITERS = 10
+# (OOS first fires at frame 8 of the bench stream)
+ACC_CMP_FRAMES, ACC_COMPRESS_FRAMES, ACC_CAPTURE_FRAMES = 40, 20, 20
+ACC_PATH_TOL = 1e-3
+ACC_ATE_FACTOR, ACC_ATE_FLOOR = 1.25, 0.015
 # B6's bound: population counts at 16 results a clock per SM (the CUDA
 # C++ Programming Guide's arithmetic-instruction throughput table,
 # compute capability 9.0), on 132 SMs at the card's maximum SM clock
@@ -322,20 +370,86 @@ def bound(n_bytes, n_flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def hold(torch, kernel, plain, cases, rival=None):
+    """Hold a Cholesky-family kernel against its plain version on the
+    inputs [(kind, X)], row by row: the limit on each input is ROW_TOL +
+    ROW_TOL_SCALE x the plain float32 version's own row error against
+    float64 there, at most ROW_TOL_CAP. `rival`, another kernel under the
+    same contract, is held to the same limit. Returns (largest
+    |difference| from the plain version, worst row error by kind, the
+    plain version's own worst row error, worst error / limit, worst
+    error / limit of the rival)."""
+    err, rel, rel_plain, use, use_rival = 0.0, {}, 0.0, 0.0, 0.0
+    for kind, X in cases:
+        got, ref = as_tuple(kernel(X)), as_tuple(plain(X))
+        ref64 = as_tuple(plain(X.double()))
+        riv = as_tuple(rival(X)) if rival else (None,) * len(got)
+        torch.cuda.synchronize()
+        for g, r, r64, v in zip(got, ref, ref64, riv):
+            if not torch.isfinite(g).all():
+                raise AssertionError("non-finite kernel output")
+            err = max(err, float((g - r).abs().max()))
+            e = row_rel_err(torch, g, r)
+            e_plain = row_rel_err(torch, r.double(), r64)
+            limit = min(ROW_TOL + ROW_TOL_SCALE * e_plain, ROW_TOL_CAP)
+            rel[kind] = max(rel.get(kind, 0.0), e)
+            rel_plain = max(rel_plain, e_plain)
+            use = max(use, e / limit)
+            if v is not None:
+                use_rival = max(use_rival, row_rel_err(torch, g, v) / limit)
+    return err, rel, rel_plain, use, use_rival
+
+
+def zero_rows_kept(X, dead):
+    """Rows and columns `dead` of every output exactly zero."""
+    for g in as_tuple(X):
+        if g[:, dead, :].abs().max() != 0 or g[:, :, dead].abs().max() != 0:
+            return False
+    return True
+
+
+# outputs of each Cholesky-family kernel; the library call that computes
+# the same function on the input with its dead rows made unit
+N_OUT = {"chol_lanes": 1, "chol_inv_lanes": 2, "tri_inv_lanes": 1,
+         "chol_blocked": 1}
+
+
+def library_call(torch, name):
+    if name in ("chol_lanes", "chol_blocked"):
+        return lambda G: torch.linalg.cholesky_ex(G)[0]
+    if name == "tri_inv_lanes":
+        return lambda L: torch.linalg.solve_triangular(
+            L, torch.eye(L.shape[-1], device=L.device).expand(L.shape),
+            upper=False)
+    return None     # no one call gives L and L^-1
+
+
+def chol_times(torch, name, kernel, plain, X):
+    """Device ms of kernel, plain version and library call on X (the
+    library on X with its dead rows made unit), and the bound: each
+    kernel reads the lower triangle of its input and writes whole (m, m)
+    outputs, and does n_out x m^3 / 3 flops a matrix."""
+    batch, m, _ = X.shape
+    library = library_call(torch, name)
+    Xu = unit_dead(torch, X)
+    n = N_OUT[name]
+    bound_ms, bound_by = bound(batch * (m * (m + 1) // 2 + n * m * m) * 4,
+                               n * batch * m ** 3 / 3.0)
+    return dict(ms=cuda_ms(torch, lambda: kernel(X)),
+                plain_ms=cuda_ms(torch, lambda: plain(X)),
+                library_ms=(cuda_ms(torch, lambda: library(Xu))
+                            if library else None),
+                bound_ms=bound_ms, bound_by=bound_by, shape=[batch, m, m])
+
+
 def check_kernels(torch, lc, captured):
     """Hold each Cholesky kernel against its plain version; time all
     three."""
     results = []
-    cases = {
-        "chol_lanes": (lc.chol_lanes, lc.chol_plain,
-                       lambda G: torch.linalg.cholesky_ex(G)[0]),
-        "chol_inv_lanes": (lc.chol_inv_lanes, lc.chol_inv_plain, None),
-        "tri_inv_lanes": (lc.tri_inv_lanes, lc.tri_inv_plain,
-                          lambda L: torch.linalg.solve_triangular(
-                              L, torch.eye(L.shape[-1], device=L.device)
-                              .expand(L.shape), upper=False)),
-    }
-    for name, (kernel, plain, library) in cases.items():
+    cases = {"chol_lanes": (lc.chol_lanes, lc.chol_plain),
+             "chol_inv_lanes": (lc.chol_inv_lanes, lc.chol_inv_plain),
+             "tri_inv_lanes": (lc.tri_inv_lanes, lc.tri_inv_plain)}
+    for name, (kernel, plain) in cases.items():
         inputs = [args[0] for args in captured[name]]
         real = inputs[-1]
         batch, m, _ = real.shape
@@ -345,54 +459,27 @@ def check_kernels(torch, lc, captured):
                 torch.where(torch.diagonal(rnd, dim1=-2, dim2=-1) > 0,
                             1.0, 0.0))
         rnd = rnd.contiguous()
-        err = 0.0
-        rel = {"real": 0.0, "random": 0.0}
-        rel_plain, use = 0.0, 0.0   # plain's own error; worst error/limit
-        for kind, X in [("real", X) for X in inputs] + [("random", rnd)]:
-            got, ref = as_tuple(kernel(X)), as_tuple(plain(X))
-            ref64 = as_tuple(plain(X.double()))
-            torch.cuda.synchronize()
-            for g, r, r64 in zip(got, ref, ref64):
-                if not torch.isfinite(g).all():
-                    raise AssertionError(f"{name}: non-finite output")
-                err = max(err, float((g - r).abs().max()))
-                e = row_rel_err(torch, g, r)
-                e_plain = row_rel_err(torch, r.double(), r64)
-                limit = min(ROW_TOL + ROW_TOL_SCALE * e_plain, ROW_TOL_CAP)
-                rel[kind] = max(rel[kind], e)
-                rel_plain = max(rel_plain, e_plain)
-                use = max(use, e / limit)
+        err, rel, rel_plain, use, _ = hold(
+            torch, kernel, plain,
+            [("real", X) for X in inputs] + [("random", rnd)])
         print(f"kernel {name}: row-relative error real {rel['real']:.3e} "
               f"random {rel['random']:.3e}; plain float32 vs float64 "
               f"{rel_plain:.3e}; worst error / limit {use:.3f}", flush=True)
         if use > 1.0:
             raise AssertionError(f"{name}: row-relative error above its "
                                  f"limit ({use:.3f} x)")
-        # rows and columns that are exactly zero stay exactly zero
-        for g in as_tuple(kernel(rnd)):
-            if (g[:, dead, :].abs().max() != 0
-                    or g[:, :, dead].abs().max() != 0):
-                raise AssertionError(f"{name}: planted zero rows leaked")
-        X = real.contiguous()
-        ms = cuda_ms(torch, lambda: kernel(X))
-        plain_ms = cuda_ms(torch, lambda: plain(X))
-        Xu = unit_dead(torch, X)
-        library_ms = cuda_ms(torch, lambda: library(Xu)) if library else None
-        # each kernel reads the lower triangle of its input and writes
-        # whole (m, m) outputs
-        n_out = {"chol_lanes": 1, "chol_inv_lanes": 2, "tri_inv_lanes": 1}
-        moved = batch * (m * (m + 1) // 2 + n_out[name] * m * m) * 4
-        bound_ms, bound_by = bound(moved, n_out[name] * batch * m ** 3 / 3.0)
+        if not zero_rows_kept(kernel(rnd), dead):
+            raise AssertionError(f"{name}: planted zero rows leaked")
+        t = chol_times(torch, name, kernel, plain, real.contiguous())
         results.append(dict(
             name=name, route="cuda",
             source="xivo_tpu_torch/csrc/lanes_chol.cu",
             replaces=REPLACES[name], launches=None, max_abs_err=err,
-            row_rel_err=max(rel.values()), ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms, shape=[batch, m, m]))
+            row_rel_err=max(rel.values()), **t))
         print(f"kernel {name}: shape {batch}x{m}x{m} max_abs_err {err:.3e} "
-              f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms} "
-              f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+              f"ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
+              f"{t['library_ms']} bound_ms {t['bound_ms']:.4f} "
+              f"({t['bound_by']})", flush=True)
     return results
 
 
@@ -606,9 +693,10 @@ def image_config():
                             dims=Dims(**IMG_BENCH_DIMS))
 
 
-def counted(torch, kernels, fn):
-    """Run fn with every launch counter at 0 and the sync debug mode set
-    to raise; return (fn's result, wall s, launches by kernel)."""
+def counted(torch, kernels, fn, sync_check=True):
+    """Run fn with every launch counter at 0 and (with sync_check) the
+    sync debug mode set to raise; return (fn's result, wall s, launches
+    by kernel)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -616,7 +704,7 @@ def counted(torch, kernels, fn):
     t0 = time.perf_counter()
     # the frame loop must never wait for the device: any PyTorch call that
     # synchronizes (.item(), a copy from pageable memory, ...) raises here
-    torch.cuda.set_sync_debug_mode("error")
+    torch.cuda.set_sync_debug_mode("error" if sync_check else "default")
     try:
         out = fn()
     finally:
@@ -634,8 +722,10 @@ def pcw_config():
                             propagation_mode="fast", covariance_form="sqrt")
 
 
-def pcw_phases(torch, lc):
-    """Phases 3-5: returns the B1-B3 JSON entries."""
+def pcw_phases(torch, lc, others):
+    """Phases 3-5: returns the B1-B3 JSON entries, the base config's
+    ATE-RMSE of sequence 0 and the launches of every kernel (`others`:
+    the kernels not on this path, counted at 0)."""
     from xivo_tpu_torch.runner import run_batch
     cfg = pcw_config()
     assert cfg.dims.full == 228
@@ -663,7 +753,7 @@ def pcw_phases(torch, lc):
     s, fib, gt = make_run(cfg, torch, DEV, B)
     T = int(fib.frame_dt.shape[1])
     (s, outs), wall, launches = counted(
-        torch, lc.KERNELS, lambda: run_batch(cfg, s, fib))
+        torch, lc.KERNELS + others, lambda: run_batch(cfg, s, fib))
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
         raise AssertionError("non-finite poses")
@@ -675,15 +765,16 @@ def pcw_phases(torch, lc):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
     if not ate < ATE_BOUND:
         raise AssertionError(f"ATE {ate} >= {ATE_BOUND}")
-    for name, n in launches.items():
-        if n != T:
-            raise AssertionError(f"{name} launched {n} times, expected {T}")
+    expect = {k.name: T for k in lc.KERNELS}
+    expect.update({k.name: 0 for k in others})
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    return kernels
+    return kernels, ate, launches
 
 
-def image_phases(torch, lc, lko):
+def image_phases(torch, lc, lko, others):
     """Phases 6-8: returns the B4-B5 JSON entries and the launches of
     every kernel on the image main path."""
     from xivo_tpu_torch.runner import run_batch_image
@@ -738,7 +829,7 @@ def image_phases(torch, lc, lko):
     s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream)
     T = int(fib.frame_dt.shape[1])
     (s, f, outs), wall, launches = counted(
-        torch, lc.KERNELS + lko.KERNELS,
+        torch, lc.KERNELS + lko.KERNELS + others,
         lambda: run_batch_image(cfg, s, f, fib))
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
@@ -766,6 +857,7 @@ def image_phases(torch, lc, lko):
         raise AssertionError("image path outside the reference's bounds")
     expect = {k.name: T for k in lc.KERNELS}
     expect.update({k.name: cfg.klt_max_level * T for k in lko.KERNELS})
+    expect.update({k.name: 0 for k in others})
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     for k in kernels:
@@ -1123,7 +1215,7 @@ def compare_mapped_paths(torch, cfg, stream):
                                  "the card and the CPU")
 
 
-def mapped_phases(torch, lc, hm):
+def mapped_phases(torch, lc, hm, others):
     """Phases 10-12: returns (the B6 JSON entry, launches on the mapped
     main path, the state and maps before the profiled window, inputs)."""
     from xivo_tpu_torch.runner import run_batch_mapped
@@ -1147,7 +1239,7 @@ def mapped_phases(torch, lc, hm):
 
     # phase 12: the mapped main path, counted: one call, all T frames
     (s, ms, outs, lcs), wall, launches = counted(
-        torch, lc.KERNELS + hm.KERNELS,
+        torch, lc.KERNELS + hm.KERNELS + others,
         lambda: run_batch_mapped(cfg, s, ms, fib, seed=0))
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
@@ -1177,6 +1269,7 @@ def mapped_phases(torch, lc, hm):
         raise AssertionError("mapped path outside its bounds")
     expect = {"chol_lanes": T, "chol_inv_lanes": 2 * T,
               "tri_inv_lanes": 2 * T, "hamming_nn": 3 * T}
+    expect.update({k.name: 0 for k in others})
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -1266,10 +1359,268 @@ def image_mapped_phase(torch, kernels):
     L = cfg.klt_max_level
     expect = {"chol_lanes": T, "chol_inv_lanes": 2 * T,
               "tri_inv_lanes": 2 * T, "lk_sample_templates": L * T,
-              "lk_gn_tracks": L * T, "hamming_nn": 3 * T}
+              "lk_gn_tracks": L * T, "hamming_nn": 3 * T, "chol_blocked": 0}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the blocked Cholesky (B7), its profile, the accuracy config
+# ---------------------------------------------------------------------------
+
+def check_chol_blocked(torch, lc, chol):
+    """Phase 15: B7 against its plain version and against B1 on random
+    PSD matrices with planted zero rows and on the same with the dead rows
+    made unit, at (B, 228, 228) and (B, 60, 60); times of kernel, plain
+    version, B1 and cholesky_ex, and the bound."""
+    entry = dict(name="chol_blocked", route="cuda",
+                 source="xivo_tpu_torch/csrc/chol_blocked.cu",
+                 replaces=REPLACES["chol_blocked"], launches=None)
+    for m in CHOL_WIDTHS:
+        rnd, dead = random_psd(torch, B, m, seed=70 + m)
+        cases = [("random", rnd), ("unit_dead", unit_dead(torch, rnd))]
+        err, rel, rel_plain, use, use_b1 = hold(
+            torch, chol.cholesky_batched, chol.cholesky_plain, cases,
+            rival=lc.chol_lanes)
+        print(f"kernel chol_blocked: m={m} row-relative error random "
+              f"{rel['random']:.3e} unit_dead {rel['unit_dead']:.3e}; plain "
+              f"float32 vs float64 {rel_plain:.3e}; worst error / limit "
+              f"{use:.3f} against the plain version, {use_b1:.3f} against "
+              f"B1", flush=True)
+        if use > 1.0 or use_b1 > 1.0:
+            raise AssertionError(f"chol_blocked: row-relative error above "
+                                 f"its limit at m={m}")
+        if not zero_rows_kept(chol.cholesky_batched(rnd), dead):
+            raise AssertionError("chol_blocked: planted zero rows leaked")
+        t = chol_times(torch, "chol_blocked", chol.cholesky_batched,
+                       chol.cholesky_plain, rnd)
+        t["b1_ms"] = cuda_ms(torch, lambda: lc.chol_lanes(rnd))
+        # every panel width the kernel is built for (the default is one)
+        t["ms_by_panel"] = {p: cuda_ms(torch, lambda: chol.cholesky_batched(
+            rnd, block=p)) for p in chol.PANELS}
+        print(f"kernel chol_blocked: m={m} ms by panel width "
+              f"{ {p: round(v, 4) for p, v in t['ms_by_panel'].items()} } "
+              f"(default {chol.DEFAULT_BLOCK})", flush=True)
+        print(f"kernel chol_blocked: shape {B}x{m}x{m} max_abs_err "
+              f"{err:.3e} ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
+              f"b1_ms {t['b1_ms']:.4f} library_ms {t['library_ms']:.4f} "
+              f"(cholesky_ex) bound_ms {t['bound_ms']:.4f} "
+              f"({t['bound_by']})", flush=True)
+        if m == CHOL_WIDTHS[0]:
+            entry.update(max_abs_err=err, row_rel_err=max(rel.values()),
+                         **t)
+        else:
+            entry.update({f"{k}_{m}": v for k, v in t.items()},
+                         **{f"max_abs_err_{m}": err})
+    return entry
+
+
+def profile_phase(torch, chol):
+    """Phase 16: the linear-algebra profile, B7's entry point, at B with
+    PROFILE_ITERS chained calls a line; B7's launches counted."""
+    from xivo_tpu_torch.tools import profile_linalg
+    res, wall, launches = counted(
+        torch, chol.KERNELS,
+        lambda: profile_linalg.profile(B, PROFILE_ITERS, device=DEV),
+        sync_check=False)
+    # two widths, a warm-up chain and a timed chain each
+    expect = 2 * len(CHOL_WIDTHS) * PROFILE_ITERS
+    print(f"profile_linalg: B={B} {PROFILE_ITERS} calls a line in "
+          f"{wall:.1f} s; launches {launches}", flush=True)
+    if launches["chol_blocked"] != expect:
+        raise AssertionError(f"launches {launches}, expected chol_blocked "
+                             f"{expect}")
+    return launches["chol_blocked"]
+
+
+class OosRows:
+    """Add up, on the device, the OOS rows each sequence applied in each
+    frame (``oos.sqrt_update``'s valid rows) while the `with` block runs:
+    nothing is read back to the host, so the frame loop does not wait."""
+
+    def __init__(self, oos):
+        self.oos, self.rows = oos, []
+
+    def __enter__(self):
+        self.orig = self.oos.sqrt_update
+
+        def rec(S, H, inn, diagR, row_valid):
+            self.rows.append(row_valid.sum(-1))
+            return self.orig(S, H, inn, diagR, row_valid)
+        self.oos.sqrt_update = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.oos.sqrt_update = self.orig
+
+    def per_frame(self):
+        """(B, T) int64 on the host."""
+        return np.stack([r.cpu().numpy() for r in self.rows], axis=1)
+
+
+def compare_accuracy_paths(torch, cfg, oos):
+    """Phase 17: the accuracy config's CUDA path against its CPU path
+    (plain versions) at full width on B = 2 for ACC_CMP_FRAMES frames:
+    poses within ACC_PATH_TOL, and the OOS rows, in-state groups (the
+    clones) and features and OOS drops equal frame by frame."""
+    from xivo_tpu_torch.runner import run_batch
+    res = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        s, fib, gt = make_run(cfg, torch, dev, 2, frames=ACC_CMP_FRAMES)
+        with OosRows(oos) as rows:
+            _, out = run_batch(cfg, s, fib)
+        res[dev] = (out, rows.per_frame())
+        print(f"accuracy {dev} path: {ACC_CMP_FRAMES} frames in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    (og, rg), (oc, rc) = res[DEV], res["cpu"]
+    dpos = float((og.Tsb.cpu() - oc.Tsb).abs().max())
+    same = bool((rg == rc).all())
+    for name in ("num_instate_groups", "num_instate_features",
+                 "num_oos_dropped"):
+        same &= torch.equal(getattr(og, name).cpu(), getattr(oc, name))
+    print(f"accuracy cuda vs cpu path, {ACC_CMP_FRAMES} frames: max |dTsb| "
+          f"{dpos:.3e} m; OOS rows of sequence 0 cuda {rg[0].tolist()} cpu "
+          f"{rc[0].tolist()}; in-state groups cuda "
+          f"{og.num_instate_groups[0].tolist()}; counts "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not (dpos < ACC_PATH_TOL and same and rg.sum() > 0):
+        raise AssertionError("the CUDA accuracy path disagrees with the CPU "
+                             "accuracy path, or OOS never fired")
+
+
+def accuracy_phases(torch, lc, chol, base_ate):
+    """Phases 17-19: the recommended accuracy config (OOS updates, pose
+    cloning, pose-only FEJ). Returns the launches of the main run, and
+    B1-B3's checks and times at the OOS shapes."""
+    from xivo_tpu_torch.filter import oos
+    from xivo_tpu_torch.runner import run_batch
+    from xivo_tpu_torch.sim.configs import accuracy_config
+    cfg = accuracy_config()
+    assert cfg.dims.full == 228
+    kernels = lc.KERNELS + chol.KERNELS
+    compare_accuracy_paths(torch, cfg, oos)
+
+    # phase 18: the accuracy path at full width, counted
+    s, fib, gt = make_run(cfg, torch, DEV, B)
+    T = int(fib.frame_dt.shape[1])
+    with OosRows(oos) as rows:
+        (s, outs), wall, launches = counted(
+            torch, kernels, lambda: run_batch(cfg, s, fib))
+    rows = rows.per_frame()
+    Tsb = outs.Tsb.cpu().numpy()
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    err = np.linalg.norm(Tsb - gt["Tsb"][None], axis=2)
+    ates = np.sqrt(np.mean(err ** 2, axis=1))
+    limit = max(ACC_ATE_FACTOR * base_ate, ACC_ATE_FLOOR)
+    print(f"accuracy main path: B={B} T={T} D={cfg.dims.full} wall "
+          f"{wall:.3f} s sequence-frames/s {B * T / wall:.1f} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{launches} ({ {k: v / T for k, v in launches.items()} } a "
+          f"frame)", flush=True)
+    print(f"accuracy main path, sequence 0: ATE-RMSE {ates[0]:.5f} m (bound "
+          f"{limit:.5f} = max({ACC_ATE_FACTOR} x base {base_ate:.5f}, "
+          f"{ACC_ATE_FLOOR})); OOS rows applied on {int((rows[0] > 0).sum())}"
+          f" of {T} frames, {int(rows[0].sum())} in all, from frame "
+          f"{int(np.argmax(rows[0] > 0)) if rows[0].any() else None}; "
+          f"num_oos_dropped {int(outs.num_oos_dropped.sum())} (all "
+          f"sequences); in-state groups at the end "
+          f"{int(outs.num_instate_groups[0, -1])}; all sequences: ATE-RMSE "
+          f"{ates.min():.5f}-{ates.max():.5f} m", flush=True)
+    if not (ates[0] < limit and rows[0].sum() > 0):
+        raise AssertionError("accuracy path outside its bound, or no OOS "
+                             "update applied")
+    expect = {"chol_lanes": T, "chol_inv_lanes": 3 * T,
+              "tri_inv_lanes": 3 * T, "chol_blocked": 0}
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+
+    # phase 19: the kernels at the OOS shapes, on the inputs of the frames
+    # where OOS rows were applied (the others are identities or zeros). B2
+    # and B3 on the two 120-row blocks of the 240-row stack...
+    oos_shapes = {}
+    s, fib, _ = make_run(cfg, torch, DEV, B, frames=ACC_CAPTURE_FRAMES)
+    with Recorder(torch, lc, ["chol_inv_lanes", "tri_inv_lanes"]) as seen:
+        run_batch(cfg, s, fib)
+    torch.cuda.synchronize()
+    pairs = {"chol_inv_lanes": (lc.chol_inv_lanes, lc.chol_inv_plain),
+             "tri_inv_lanes": (lc.tri_inv_lanes, lc.tri_inv_plain)}
+    for name, (kernel, plain) in pairs.items():
+        inputs = [a[0] for a in seen[name] if a[0].shape[-1] != 60]
+        oos_shapes[name] = check_oos_shape(torch, name, kernel, plain,
+                                           inputs)
+    del seen
+    # ... and B1 at (D + 1)^2 = 229^2 with compression forced, counted
+    ccfg = accuracy_config(compression_trigger_ratio=0.5)
+    s, fib, _ = make_run(ccfg, torch, DEV, B, frames=ACC_COMPRESS_FRAMES)
+    T = ACC_COMPRESS_FRAMES
+    with Recorder(torch, lc, ["chol_lanes"]) as seen:
+        (_, outs), wall, claunches = counted(
+            torch, kernels, lambda: run_batch(ccfg, s, fib))
+    print(f"accuracy path, compression forced: B={B} T={T} launches "
+          f"{claunches}", flush=True)
+    expect = {"chol_lanes": 2 * T, "chol_inv_lanes": 3 * T,
+              "tri_inv_lanes": 3 * T, "chol_blocked": 0}
+    if claunches != expect or not torch.isfinite(outs.Tsb).all():
+        raise AssertionError(f"launches {claunches}, expected {expect}")
+    inputs = [a[0] for a in seen["chol_lanes"] if a[0].shape[-1] == 229]
+    if len(inputs) != T:
+        raise AssertionError(f"B1 ran {len(inputs)} times at 229, "
+                             f"expected {T}")
+    del seen
+    oos_shapes["chol_lanes"] = check_oos_shape(
+        torch, "chol_lanes", lc.chol_lanes, lc.chol_plain, inputs,
+        backward=True)
+    return launches, oos_shapes
+
+
+def backward_use(torch, kernel, plain, inputs):
+    """Worst ratio of the kernel's backward error to its limit over the
+    inputs, and the plain float32 version's own worst (see BACKWARD_TOL)."""
+    def berr(L, X):
+        return float((L @ L.transpose(-1, -2) - X).abs().amax()
+                     / X.abs().amax())
+    use = own = 0.0
+    for X in inputs:
+        e, e_plain = berr(kernel(X), X), berr(plain(X), X)
+        own = max(own, e_plain)
+        use = max(use, e / (BACKWARD_TOL + ROW_TOL_SCALE * e_plain))
+    return use, own
+
+
+def check_oos_shape(torch, name, kernel, plain, inputs, backward=False):
+    """A kernel of B1-B3 at an OOS shape, held against its plain version
+    on those of the path's inputs that carry OOS rows (an off-diagonal
+    entry that is not zero) and timed on the last of them: row by row as
+    phase 3 does, or (`backward`) by its backward error."""
+    n_all = len(inputs)
+    inputs = [X for X in inputs if bool(
+        (X - torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))).abs()
+        .amax() > 0)]
+    if len(inputs) < 2:
+        raise AssertionError(f"{name}: {len(inputs)} inputs with OOS rows")
+    err, rel, rel_plain, use, _ = hold(torch, kernel, plain,
+                                       [("real", X) for X in inputs])
+    if backward:
+        use, own = backward_use(torch, kernel, plain, inputs)
+        print(f"kernel {name} at m={inputs[0].shape[-1]}: backward error / "
+              f"limit {use:.3f} (the plain float32 version's own "
+              f"{own:.3e})", flush=True)
+    t = chol_times(torch, name, kernel, plain, inputs[-1].contiguous())
+    m = t["shape"][-1]
+    print(f"kernel {name} at the OOS shape {t['shape']}: row-relative error "
+          f"{rel['real']:.3e} (plain float32 vs float64 {rel_plain:.3e}), "
+          f"worst error / limit {use:.3f} on the {len(inputs)} of {n_all} "
+          f"inputs with OOS rows; ms "
+          f"{t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
+          f"{t['library_ms']} bound_ms {t['bound_ms']:.4f} "
+          f"({t['bound_by']})", flush=True)
+    if use > 1.0:
+        raise AssertionError(f"{name} at m={m}: error above its limit "
+                             f"({use:.3f} x)")
+    return dict(max_abs_err=err, row_rel_err=rel["real"], **t)
 
 
 def main():
@@ -1279,8 +1630,9 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import xivo_tpu_torch  # noqa: F401  (sets the TF32 switches)
-    from xivo_tpu_torch.ops import lanes_chol as lc
+    from xivo_tpu_torch.ops import chol
     from xivo_tpu_torch.ops import hamming as hm
+    from xivo_tpu_torch.ops import lanes_chol as lc
     from xivo_tpu_torch.ops import lk as lko
 
     t_start = time.time()
@@ -1293,23 +1645,35 @@ def main():
     built = build_kernels()
     print(f"build: {sorted(built)} in {time.time() - t0:.1f} s", flush=True)
 
-    kernels = pcw_phases(torch, lc)
+    chol_entry = check_chol_blocked(torch, lc, chol)
+    chol_entry["launches"] = profile_phase(torch, chol)
+    print(f"B7 phases done: {time.time() - t_start:.1f} s", flush=True)
+    kernels, base_ate, pcw_launches = pcw_phases(torch, lc, chol.KERNELS)
     print(f"pcw phases done: {time.time() - t_start:.1f} s", flush=True)
-    lk_kernels, img_launches = image_phases(torch, lc, lko)
+    acc_launches, oos_shapes = accuracy_phases(torch, lc, chol, base_ate)
+    print(f"accuracy phases done: {time.time() - t_start:.1f} s", flush=True)
+    lk_kernels, img_launches = image_phases(torch, lc, lko, chol.KERNELS)
     print(f"image phases done: {time.time() - t_start:.1f} s", flush=True)
-    hm_kernel, map_launches, mcfg, before, win = mapped_phases(torch, lc, hm)
+    hm_kernel, map_launches, mcfg, before, win = mapped_phases(
+        torch, lc, hm, chol.KERNELS)
     print(f"mapped phases done: {time.time() - t_start:.1f} s", flush=True)
     refine_phase(torch, mcfg)
     img_map_launches = image_mapped_phase(
-        torch, lc.KERNELS + lko.KERNELS + hm.KERNELS)
+        torch, lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS)
     breakdown_phase(torch, pcw_config(), (mcfg, before, win))
     del before
     for k in kernels:
-        k["launches_image_path"] = img_launches[k["name"]]
-    kernels += lk_kernels + [hm_kernel]
+        k["oos_shape"] = oos_shapes[k["name"]]
+    kernels += lk_kernels + [hm_kernel, chol_entry]
     for k in kernels:
-        k["launches_mapped_path"] = map_launches.get(k["name"], 0)
-        k["launches_image_mapped_path"] = img_map_launches[k["name"]]
+        name = k["name"]
+        k["launches_pcw_path"] = pcw_launches.get(name, 0)
+        k["launches_accuracy_path"] = acc_launches.get(name, 0)
+        k["launches_image_path"] = img_launches.get(name, 0)
+        k["launches_mapped_path"] = map_launches.get(name, 0)
+        k["launches_image_mapped_path"] = img_map_launches[name]
+        k["launches_profile_path"] = (chol_entry["launches"]
+                                      if k is chol_entry else 0)
     print(f"elapsed: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

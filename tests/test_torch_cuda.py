@@ -10,8 +10,12 @@ Each kernel is held against its plain PyTorch version (which the CPU
 tests hold against the JAX package) on the same float32 inputs.
 Cholesky kernels: tolerance 1e-4 absolute: well-conditioned inputs
 (eigenvalues >= 0.1, entries O(1)), two float32 factorizations summing
-in another order. LK kernels: on the inputs one pyramidal LK call on a
-shifted texture gives them; the template windows within 1e-5 of each
+in another order; the blocked Cholesky (B7) at every panel width it
+builds, against its plain version and against B1, and B1 at 229 (OOS
+measurement compression). A short run of the recommended accuracy config
+at full width under the sync debug mode, with its launches a frame.
+LK kernels: on the inputs one pyramidal LK call on a shifted texture
+gives them; the template windows within 1e-5 of each
 track's largest entry (the same four taps, weights and order), the
 Gauss-Newton loop's flags equal on at least 99.5 % of the live tracks
 and its positions within 2 eps = 0.02 px on the tracks that converged in
@@ -32,11 +36,12 @@ import pytest
 import torch
 
 from chip_smoke import (GN_UNCONV_TOL, MAP_FUSE_TOL32, MAP_FUSE_TOL64,
-                        Recorder,
-                        compare_retire, make_mapped_run, mapped_config,
-                        mapped_stream, random_hamming_inputs, texture)
+                        Recorder, compare_retire, make_mapped_run, make_run,
+                        mapped_config, mapped_stream, random_hamming_inputs,
+                        texture)
 from xivo_tpu_torch.frontend import lk as flk
 from xivo_tpu_torch.frontend.image import build_pyramid
+from xivo_tpu_torch.ops import chol
 from xivo_tpu_torch.ops import hamming as hm
 from xivo_tpu_torch.ops import lanes_chol as lc
 from xivo_tpu_torch.ops import lk as lko
@@ -110,6 +115,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         lc.chol_lanes(G.transpose(1, 2))
     with pytest.raises(RuntimeError):  # two packed 300 x 300 > 227 KB
         lc.chol_inv_lanes(psd_batch(1, 300, [0], seed=0))
+
+
+@pytest.mark.parametrize("m,block", [(12, 32), (60, 32), (228, 32),
+                                     (60, 8), (228, 16), (229, 32)])
+def test_chol_blocked_kernel_matches_plain_version_and_b1(cuda, m, block):
+    dead = [0, m // 3, m - 2]
+    G = psd_batch(64, m, dead, seed=m + block)
+    n = chol.CHOL_BLOCKED.launches
+    L = chol.cholesky_batched(G, block=block)
+    assert chol.CHOL_BLOCKED.launches == n + 1
+    close(L, chol.cholesky_plain(G))
+    close(L, lc.chol_lanes(G))              # B1 keeps the same contract
+    zero_rows_stay_zero(L, dead)
+
+
+def test_cholesky_psd_sends_any_batch_to_one_launch(cuda):
+    G = psd_batch(6, 60, [5], seed=2)
+    for X in (G[0], G.reshape(2, 3, 60, 60)):
+        n = chol.CHOL_BLOCKED.launches
+        L = chol.cholesky_psd(X)
+        assert chol.CHOL_BLOCKED.launches == n + 1
+        assert L.shape == X.shape
+        close(L, chol.cholesky_plain(X))
+
+
+def test_chol_blocked_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    G = psd_batch(2, 8, [0], seed=0)
+    with pytest.raises(TypeError):
+        chol.cholesky_batched(G.double())
+    with pytest.raises(ValueError):
+        chol.cholesky_batched(G, block=64)
+    with pytest.raises(ValueError):
+        chol.cholesky_batched(G.transpose(1, 2))
+    with pytest.raises(RuntimeError):  # a packed 400 x 400 > 227 KB
+        chol.cholesky_batched(psd_batch(1, 400, [0], seed=0))
+
+
+def test_chol_lanes_at_the_compression_width(cuda):
+    """B1 at (D + 1)^2 = 229^2, OOS measurement compression's shape:
+    106,256 bytes of shared memory and 1024 threads a matrix."""
+    dead = [3, 100, 228]
+    G = psd_batch(32, 229, dead, seed=229)
+    L = lc.chol_lanes(G)
+    close(L, lc.chol_plain(G))
+    zero_rows_stay_zero(L, dead)
+
+
+@pytest.mark.parametrize("ratio,b1", [(1.5, 1), (0.5, 2)])
+def test_accuracy_run_never_waits_for_the_card(cuda, ratio, b1):
+    """The recommended accuracy config at default Dims (D = 228): B1 once
+    a frame (twice with compression forced), B2 and B3 three times (the
+    60-row instate update and the two 120-row blocks of the 240-row OOS
+    stack, or of the 228 compressed rows)."""
+    from xivo_tpu_torch.runner import run_batch
+    from xivo_tpu_torch.sim.configs import accuracy_config
+    cfg = accuracy_config(compression_trigger_ratio=ratio)
+    T = 6
+    s, fib, _ = make_run(cfg, torch, "cuda", 2, frames=T)
+    run_batch(cfg, s, fib)                   # makes the device constants
+    torch.cuda.synchronize()
+    before = {k.name: k.launches for k in lc.KERNELS}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, out = run_batch(cfg, s, fib)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    got = {k.name: k.launches - before[k.name] for k in lc.KERNELS}
+    assert got == {"chol_lanes": b1 * T, "chol_inv_lanes": 3 * T,
+                   "tri_inv_lanes": 3 * T}
+    assert bool(torch.isfinite(out.Tsb).all())
 
 
 def lk_inputs(B=4, N=128, levels=4):

@@ -217,7 +217,9 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.map, xivo_tpu_torch.map.mapper\n"
         "import xivo_tpu_torch.map.p3p, xivo_tpu_torch.map.integration\n"
         "import xivo_tpu_torch.map.bigmap, xivo_tpu_torch.ba.core\n"
-        "import xivo_tpu_torch.ops.hamming\n"
+        "import xivo_tpu_torch.ops.hamming, xivo_tpu_torch.ops.chol\n"
+        "import xivo_tpu_torch.filter.oos, xivo_tpu_torch.filter.init_cov\n"
+        "import xivo_tpu_torch.tools.profile_linalg\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'xivo_tpu'\n"
         "       or m.startswith('xivo_tpu.')]\n"
@@ -260,8 +262,7 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ("use_OOS", "A.15"), ("clone_frame_groups", "A.15"),
-    ("use_fej", "A.15"), ("approximate_init_covariance", "A.15"),
+    ({"use_OOS": True, "use_oc_meas": True}, "A.16"),
     ("use_depth_opt", "A.16"), ("use_1pt_RANSAC", "A.16"),
     ("use_huber", "A.16"), ("use_oc", "A.16"),
     ("online_camera_calib", "A.16"), ("do_outlier_rejection", "A.12"),
@@ -273,8 +274,12 @@ def test_options_outside_the_slice_raise(option, item):
     from xivo_tpu_torch.filter.pipeline import vio_frame
     from xivo_tpu_torch.frontend.tracker import (tracker_only_frame,
                                                  vio_frame_image)
-    name, value = option if isinstance(option, tuple) else (option, True)
-    cfg = dataclasses.replace(torch_cfg(), **{name: value})
+    if isinstance(option, dict):
+        over = option
+    else:
+        name, value = option if isinstance(option, tuple) else (option, True)
+        over = {name: value}
+    cfg = dataclasses.replace(torch_cfg(), **over)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         batch_states(cfg, 1, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -274,7 +274,8 @@ def tracker_pointcloud(cfg: VIOConfig, s: VIOState, meas_id, meas_xp,
 
 def _process_tracks(cfg: VIOConfig, s: VIOState):
     """ProcessTracks (src/manager.cpp:171-250) in masked form.
-    Returns (state, affected_groups (B, NG))."""
+    Returns (state, affected_groups (B, NG), OOS candidates over the cap
+    (B,))."""
     fr, gr = s.features, s.groups
     NG = gr.gid.shape[-1]
     kind = cam_mod.MODEL_IDS[cfg.cam_model]
@@ -294,6 +295,13 @@ def _process_tracks(cfg: VIOConfig, s: VIOState):
     affected = torch.any(inst_drop[..., :, None]
                          & _onehot_rows(fr.ref, NG), dim=-2)
     s = _remove_features_from_state(cfg, s, inst_drop)
+
+    # 1b) MSCKF/OOS update: never-instate features leaving the tracker
+    # spend their multi-view information before they are destroyed
+    n_oos_dropped = torch.zeros_like(s.vision_counter)
+    if cfg.use_OOS:
+        from .oos import oos_update
+        s, n_oos_dropped = oos_update(cfg, s, dropped & ~instate)
 
     # 2) all dropped rows leave the table
     s = s._replace(features=_clear_feature_rows(s.features, dropped))
@@ -353,7 +361,8 @@ def _process_tracks(cfg: VIOConfig, s: VIOState):
 
     # 3b) subfilter outlier eviction
     evict = sub & (fr.outlier_counter > cfg.remove_outlier_counter)
-    return s._replace(features=_clear_feature_rows(fr, evict)), affected
+    return (s._replace(features=_clear_feature_rows(fr, evict)), affected,
+            n_oos_dropped)
 
 
 def _add_feature_blocks(cfg: VIOConfig, P, fr: FeatureTable, new_slot_mask,
@@ -422,6 +431,19 @@ def _commit_feature_admissions(cfg: VIOConfig, s: VIOState, slot_of_row,
             row_of_slot)
 
 
+def _copy_pose_rows(P, new_slot):
+    """Group-slot covariance init (AddGroupToState, src/estimator.cpp:
+    786-824): every new slot's six factor rows copy the (Wsb, Tsb) error
+    rows; on a factor the row copy alone realizes the error clone."""
+    G = new_slot.shape[-1]
+    gb, ge = L.GROUP_BEGIN, L.GROUP_BEGIN + 6 * G
+    sel = new_slot[..., None].expand(new_slot.shape + (6,)).reshape(
+        new_slot.shape[0], 6 * G)
+    src = torch.cat([P[:, L.WSB:L.WSB + 3], P[:, L.TSB:L.TSB + 3]], 1)
+    grows = torch.where(sel[..., None], src.repeat(1, G, 1), P[:, gb:ge])
+    return torch.cat([P[:, :gb], grows, P[:, ge:]], dim=1)
+
+
 def _admit_groups(cfg: VIOConfig, s: VIOState):
     """AddGroupOfFeatures (src/manager.cpp:469-566), single pass: groups
     ranked by candidate count, admitted while group slots and the
@@ -435,8 +457,12 @@ def _admit_groups(cfg: VIOConfig, s: VIOState):
     n_cand = torch.sum(ref_oh.to(torch.int64), dim=-2)          # (B, NG)
     free_fslots = torch.sum((s.f2row < 0).to(torch.int64), -1, keepdim=True)
     free_gslots = torch.sum((s.g2row < 0).to(torch.int64), -1, keepdim=True)
+    # a group is admissible if it needs a slot, or if it is a pure pose
+    # clone graduating to a feature-anchor group: clones already hold a
+    # slot and covariance, so admission only commits their cohort (no
+    # is_clone bit is set unless the config clones)
     need_slot = gr.active & (gr.sind < 0)
-    eligible = gr.active & need_slot \
+    eligible = gr.active & (need_slot | ((gr.sind >= 0) & gr.is_clone)) \
         & (n_cand >= cfg.num_gauge_xy_features)
 
     key = torch.where(eligible, -n_cand, 1)
@@ -458,16 +484,8 @@ def _admit_groups(cfg: VIOConfig, s: VIOState):
         gr = gr._replace(sind=torch.where(got_g, gslot_of_row, gr.sind),
                          is_clone=gr.is_clone & ~take)
         g2row, new_slot, _ = _place_one_hot(tgt, G, s.g2row)
-        # covariance init: every admitted slot's rows copy the (Wsb, Tsb)
-        # error rows (static source indices, traced slot mask)
-        gb, ge = L.GROUP_BEGIN, L.GROUP_BEGIN + 6 * G
-        P = s.P
-        sel = new_slot[..., None].expand(new_slot.shape + (6,)).reshape(
-            new_slot.shape[0], 6 * G)
-        src = torch.cat([P[:, L.WSB:L.WSB + 3], P[:, L.TSB:L.TSB + 3]], 1)
-        grows = torch.where(sel[..., None], src.repeat(1, G, 1), P[:, gb:ge])
-        P = torch.cat([P[:, :gb], grows, P[:, ge:]], dim=1)
-        s = s._replace(groups=gr, g2row=g2row, P=P)
+        s = s._replace(groups=gr, g2row=g2row,
+                       P=_copy_pose_rows(s.P, new_slot))
         want = cand & take_rows(take, torch.clamp(fr.ref, 0, NG - 1)) \
             & (fr.ref >= 0)
         slot_of_row, got = _rank_assign(s.f2row < 0, want,
@@ -478,6 +496,18 @@ def _admit_groups(cfg: VIOConfig, s: VIOState):
     any_take = torch.any(take, dim=-1)
     return (where_state(any_take, s_adm, s), nsm & any_take[:, None],
             torch.where(any_take[:, None], ros, -1))
+
+
+def _apply_init_correlations(cfg: VIOConfig, s: VIOState, new_slot_mask,
+                             row_of_slot) -> VIOState:
+    """One correlated-init congruence for all slots admitted this frame
+    (both admission passes). The reference skips it under a cond when no
+    slot is new; here it always runs, and a sequence with no new slot has
+    J = 0 exactly, so its factor gains exactly zero."""
+    if not cfg.approximate_init_covariance:
+        return s
+    from .init_cov import add_init_correlations
+    return add_init_correlations(cfg, s, new_slot_mask, row_of_slot)
 
 
 def _admit_features_within_groups(cfg: VIOConfig, s: VIOState):
@@ -697,7 +727,52 @@ def _create_group_and_init_tracks(cfg: VIOConfig, s: VIOState) -> VIOState:
         adj=torch.where(row_col, obs[..., None], fr.adj),
         adj_xp=torch.where(row_col[..., None], fr.xp[..., None, :],
                            fr.adj_xp))
-    return s._replace(features=fr, groups=gr, next_gid=s.next_gid + 1)
+    s = s._replace(features=fr, groups=gr, next_gid=s.next_gid + 1)
+    if cfg.use_OOS or cfg.clone_frame_groups:
+        s = _clone_group_into_state(cfg, s, row)
+    return s
+
+
+def _clone_group_into_state(cfg: VIOConfig, s: VIOState, row) -> VIOState:
+    """MSCKF-style pose cloning: the frame's new group (row (B,)) joins
+    the EKF window without admitted features, so that never-instate
+    features see a sliding window of recent poses. When the window is
+    full the oldest instate group anchoring no instate feature (a pure
+    clone) is marginalized. The reference evicts under a cond; here the
+    eviction runs on every sequence with a row mask that is empty where
+    nothing is evicted, which leaves that sequence's state exactly as it
+    was (its factor rows are multiplied by 1)."""
+    gr, fr = s.groups, s.features
+    G = cfg.dims.n_groups
+    NG = gr.gid.shape[-1]
+
+    grow_of_slot = torch.clamp(s.g2row, 0, NG - 1)
+    anchors = torch.any((fr.sind >= 0)[..., None] & _onehot_rows(fr.ref, NG),
+                        dim=-2)                                # (B, NG)
+    occupied = s.g2row >= 0
+    evictable = occupied & ~take_rows(anchors, grow_of_slot)
+    slot_gid = take_rows(gr.gid, grow_of_slot)
+    evict_slot = torch.argmin(torch.where(evictable, slot_gid, 2 ** 31 - 1),
+                              dim=-1)
+    need_evict = torch.all(occupied, -1) & torch.any(evictable, -1)
+    evict_row = torch.where(
+        need_evict, take_rows(grow_of_slot, evict_slot[:, None])[:, 0], NG)
+    s = _remove_groups_from_state(cfg, s, _onehot_rows(evict_row[:, None],
+                                                       NG)[:, 0])
+
+    # a free slot, if any, takes the new row; its covariance rows copy
+    # the body pose's
+    free = s.g2row < 0
+    can = torch.any(free, dim=-1)
+    slot = _first_true(free)
+    at_row = _onehot_rows(row[:, None], NG)[:, 0] & can[:, None]
+    new_slot = _onehot_rows(slot[:, None], G)[:, 0] & can[:, None]
+    gr = s.groups._replace(
+        sind=torch.where(at_row, slot[:, None], s.groups.sind),
+        is_clone=s.groups.is_clone | at_row)
+    return s._replace(groups=gr,
+                      g2row=torch.where(new_slot, row[:, None], s.g2row),
+                      P=_copy_pose_rows(s.P, new_slot))
 
 
 def _adapt_initial_depth(cfg: VIOConfig, s: VIOState) -> VIOState:
@@ -744,12 +819,18 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
     (Estimator::UpdateStep, src/manager.cpp:18-167)."""
     d = cfg.dims
     NG = d.ng_rows
-    s, affected = _process_tracks(cfg, s)
+    s, affected, n_oos_dropped = _process_tracks(cfg, s)
 
-    # admission
+    # admission, then ONE correlated-init pass over the union of both
+    # admission cohorts
     if cfg.num_gauge_xy_features > 0:
-        s, _, _ = _admit_groups(cfg, s)
-    s, _, _ = _admit_features_within_groups(cfg, s)
+        s, nsm_g, ros_g = _admit_groups(cfg, s)
+    else:
+        nsm_g = torch.zeros_like(s.f2row, dtype=torch.bool)
+        ros_g = torch.full_like(s.f2row, -1)
+    s, nsm_w, ros_w = _admit_features_within_groups(cfg, s)
+    s = _apply_init_correlations(cfg, s, nsm_g | nsm_w,
+                                 torch.where(nsm_g, ros_g, ros_w))
 
     # jacobians + MH gating
     sj = build_stacked_jacobian(cfg, s)
@@ -824,7 +905,7 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
         num_oneptransac_rejected=zero,
         num_tracker_outlier_rejected=s.n_tracker_rejected,
         inn_rms=inn_rms,
-        num_oos_dropped=zero)
+        num_oos_dropped=n_oos_dropped)
     return s, out
 
 

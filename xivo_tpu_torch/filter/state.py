@@ -143,13 +143,6 @@ def check_supported(cfg: VIOConfig):
     if cfg.online_camera_calib:
         raise NotImplementedError(
             "online camera calibration comes with ROADMAP A.16")
-    accuracy = ["use_OOS", "clone_frame_groups", "use_fej",
-                "approximate_init_covariance"]
-    on = [k for k in accuracy if getattr(cfg, k)]
-    if on:
-        raise NotImplementedError(
-            f"xivo_tpu_torch: {on} come with ROADMAP A.15 (the accuracy "
-            "config)")
     options = ["use_depth_opt", "use_1pt_RANSAC", "use_huber", "use_oc",
                "use_oc_meas"]
     on = [k for k in options if getattr(cfg, k)]

@@ -52,10 +52,23 @@ def build_stacked_jacobian(cfg: VIOConfig, s: VIOState) -> StackedJac:
     jr = compute_jacobian(kind, s.cam[:, None], bcast_X(s.X), Rsbr_s, Tsbr_s,
                           x_s, xp_s, s.last_gyro[:, None],
                           cfg.online_camera_calib)
+    J_group, J_feat = jr.J_group, jr.J_feat
+    if cfg.use_fej:
+        # first-estimate Jacobians: the group-pose and feature blocks are
+        # linearized at the ref group's first pose estimate; the residual
+        # keeps the current estimates. The feature block sits at the
+        # current x unless fej_feature_block (x is ref-relative, so its
+        # first estimate buys no observability, see config.py)
+        xl = take_rows(fr.x_fej, rowc) if cfg.fej_feature_block else x_s
+        jf = compute_jacobian(kind, s.cam[:, None], bcast_X(s.X),
+                              take_rows(gr.Rsb_fej, gref),
+                              take_rows(gr.Tsb_fej, gref), xl, xp_s,
+                              s.last_gyro[:, None], cfg.online_camera_calib)
+        J_group, J_feat = jf.J_group, jf.J_feat
     okf = valid.to(dtype)
     ok3 = okf[..., None, None]
-    Jm, Jc, Jg, Jf = (jr.J_motion * ok3, jr.J_cam * ok3, jr.J_group * ok3,
-                      jr.J_feat * ok3)
+    Jm, Jc, Jg, Jf = (jr.J_motion * ok3, jr.J_cam * ok3, J_group * ok3,
+                      J_feat * ok3)
     inn = jr.inn * okf[..., None]
 
     # without temporal / IMU calibration their columns are zero (the

@@ -89,3 +89,21 @@ def make_world(n=500, seed=0):
     rng = np.random.default_rng(seed)
     return np.stack([rng.uniform(-12, 12, n), rng.uniform(4, 25, n),
                      rng.uniform(-8, 8, n)], axis=1)
+
+
+# the recommended accuracy config's switches (bench.py::stage_consistency):
+# OOS (MSCKF-style) updates, pose cloning and pose-only first-estimate
+# Jacobians (fej_feature_block stays False)
+ACCURACY = {"use_OOS": True, "clone_frame_groups": True, "use_fej": True}
+
+
+def accuracy_config(world=None, **over):
+    """The recommended accuracy config as ``bench.py::stage_consistency``
+    builds it: ``world`` (PCW_CFG by default) in float32 with simulated
+    depth initialization, the square-root form and fast propagation, and
+    the ACCURACY switches; ``over`` goes on top."""
+    from ..filter.config import config_from_json
+    kw = dict(dtype="float32", sim_initialize_depths=True,
+              propagation_mode="fast", covariance_form="sqrt", **ACCURACY)
+    kw.update(over)
+    return config_from_json(PCW_CFG if world is None else world, **kw)
