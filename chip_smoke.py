@@ -15,7 +15,9 @@ PCW path (slice 1):
    plain PyTorch version on those real matrices and on random PSD
    matrices with planted zero rows, and time kernel, plain version and
    the library call (``cholesky_ex``, ``solve_triangular``; on the same
-   input with its dead rows made unit);
+   input with its dead rows made unit); B1 is the blocked kernel of
+   ``csrc/chol_blocked.cu``, which also serves B7, and is timed under both
+   names beside ``cholesky_ex`` with the ratio printed;
 4. check the CUDA path against the port's CPU path (plain versions) at
    full width on a small batch (B = 2, 10 frames);
 5. run the PCW main path: float32, default Dims (D = 228), B = 256
@@ -80,13 +82,15 @@ mapped path (slice 3):
 slice 4 (B7 and the accuracy config; phases 15-16 run first, 17-19
 right after phase 5, whose ATE they use):
 15. hold the blocked Cholesky kernel (B7) against its plain version and
-   against B1's kernel, row by row as phase 3 does, at (256, 228, 228)
-   and (256, 60, 60) on random PSD matrices with planted zero rows and on
-   the same with the dead rows made unit; time kernel, plain version, B1
-   and ``cholesky_ex``, and print B7's bound;
+   against B1 (the same kernel under its other name), row by row as phase
+   3 does, at (256, 228, 228) and (256, 60, 60) on random PSD matrices
+   with planted zero rows and on the same with the dead rows made unit;
+   time it under both names, its plain version and ``cholesky_ex``, print
+   the ratios and B7's bound;
 16. the linear-algebra profile (``xivo_tpu_torch.tools.profile_linalg``,
    B7's entry point) at B = 256, PROFILE_ITERS chained calls a line,
-   B7's launches counted;
+   B7's launches counted, the kernel's ratio to ``cholesky_ex`` under both
+   names printed;
 17. check the recommended accuracy config's CUDA path (OOS updates, pose
    cloning, pose-only FEJ) against its CPU path at full width on B = 2
    for ACC_CMP_FRAMES frames: poses within 1e-3 m, and the OOS rows
@@ -103,7 +107,8 @@ right after phase 5, whose ATE they use):
    compression forced (``compression_trigger_ratio=0.5``, counted: B1
    twice a frame), each held against its plain version on the inputs of
    the frames where OOS rows were applied (from frame 8 on; B1 by its
-   backward error, see BACKWARD_TOL) and timed.
+   backward error, see BACKWARD_TOL) and timed (B1 also as B7, beside
+   ``cholesky_ex``).
 
 Each kernel's entry in the JSON line carries its launches on every
 path (B7's ``launches`` are the profile's; 0 on the filter paths). The
@@ -171,7 +176,7 @@ PROFILE_FRAMES = (30, 40)   # the window that phase 9 profiles
 
 DEV = "cuda"            # the card every phase runs on
 # the kernels of csrc/*.cu, as the profiler names them
-OWN_KERNELS = ("chol_kernel", "chol_inv_kernel", "tri_inv_kernel",
+OWN_KERNELS = ("chol_blocked_kernel", "chol_inv_kernel", "tri_inv_kernel",
                "templates_kernel", "gn_kernel", "hamming_nn_kernel")
 REPLACES = {"chol_lanes": "xivo_tpu/ops/lanes_chol.py:103",
             "chol_blocked": "xivo_tpu/ops/chol_pallas.py:37",
@@ -414,6 +419,17 @@ N_OUT = {"chol_lanes": 1, "chol_inv_lanes": 2, "tri_inv_lanes": 1,
          "chol_blocked": 1}
 
 
+# B1 and B7 are one kernel (csrc/chol_blocked.cu) under two names: each
+# name's timing also times the other on the same input
+TWIN = {"chol_lanes": "chol_blocked", "chol_blocked": "chol_lanes"}
+
+
+def chol_named(name):
+    from xivo_tpu_torch.ops import chol, lanes_chol
+    return {"chol_lanes": lanes_chol.chol_lanes,
+            "chol_blocked": chol.cholesky_batched}[name]
+
+
 def library_call(torch, name):
     if name in ("chol_lanes", "chol_blocked"):
         return lambda G: torch.linalg.cholesky_ex(G)[0]
@@ -435,11 +451,26 @@ def chol_times(torch, name, kernel, plain, X):
     n = N_OUT[name]
     bound_ms, bound_by = bound(batch * (m * (m + 1) // 2 + n * m * m) * 4,
                                n * batch * m ** 3 / 3.0)
-    return dict(ms=cuda_ms(torch, lambda: kernel(X)),
-                plain_ms=cuda_ms(torch, lambda: plain(X)),
-                library_ms=(cuda_ms(torch, lambda: library(Xu))
-                            if library else None),
-                bound_ms=bound_ms, bound_by=bound_by, shape=[batch, m, m])
+    t = dict(ms=cuda_ms(torch, lambda: kernel(X)),
+             plain_ms=cuda_ms(torch, lambda: plain(X)),
+             library_ms=(cuda_ms(torch, lambda: library(Xu))
+                         if library else None),
+             bound_ms=bound_ms, bound_by=bound_by, shape=[batch, m, m])
+    if name in TWIN:
+        twin = chol_named(TWIN[name])
+        t.update(twin=TWIN[name], twin_ms=cuda_ms(torch, lambda: twin(X)))
+        t.update(ratio=t["ms"] / t["library_ms"],
+                 twin_ratio=t["twin_ms"] / t["library_ms"])
+    return t
+
+
+def twin_line(name, t):
+    """The one blocked kernel timed under both of its names, beside
+    cholesky_ex in the same call."""
+    m = t["shape"][-1]
+    return (f"kernel {name}: m={m} {t['ms']:.4f} ms = {t['ratio']:.3f} x "
+            f"cholesky_ex ({t['library_ms']:.4f} ms); the same kernel as "
+            f"{t['twin']} {t['twin_ms']:.4f} ms = {t['twin_ratio']:.3f} x")
 
 
 def check_kernels(torch, lc, captured):
@@ -473,13 +504,16 @@ def check_kernels(torch, lc, captured):
         t = chol_times(torch, name, kernel, plain, real.contiguous())
         results.append(dict(
             name=name, route="cuda",
-            source="xivo_tpu_torch/csrc/lanes_chol.cu",
+            source=("xivo_tpu_torch/csrc/chol_blocked.cu" if name in TWIN
+                    else "xivo_tpu_torch/csrc/lanes_chol.cu"),
             replaces=REPLACES[name], launches=None, max_abs_err=err,
             row_rel_err=max(rel.values()), **t))
         print(f"kernel {name}: shape {batch}x{m}x{m} max_abs_err {err:.3e} "
               f"ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
               f"{t['library_ms']} bound_ms {t['bound_ms']:.4f} "
               f"({t['bound_by']})", flush=True)
+        if name in TWIN:
+            print(twin_line(name, t), flush=True)
     return results
 
 
@@ -1395,18 +1429,11 @@ def check_chol_blocked(torch, lc, chol):
             raise AssertionError("chol_blocked: planted zero rows leaked")
         t = chol_times(torch, "chol_blocked", chol.cholesky_batched,
                        chol.cholesky_plain, rnd)
-        t["b1_ms"] = cuda_ms(torch, lambda: lc.chol_lanes(rnd))
-        # every panel width the kernel is built for (the default is one)
-        t["ms_by_panel"] = {p: cuda_ms(torch, lambda: chol.cholesky_batched(
-            rnd, block=p)) for p in chol.PANELS}
-        print(f"kernel chol_blocked: m={m} ms by panel width "
-              f"{ {p: round(v, 4) for p, v in t['ms_by_panel'].items()} } "
-              f"(default {chol.DEFAULT_BLOCK})", flush=True)
         print(f"kernel chol_blocked: shape {B}x{m}x{m} max_abs_err "
               f"{err:.3e} ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
-              f"b1_ms {t['b1_ms']:.4f} library_ms {t['library_ms']:.4f} "
-              f"(cholesky_ex) bound_ms {t['bound_ms']:.4f} "
-              f"({t['bound_by']})", flush=True)
+              f"library_ms {t['library_ms']:.4f} (cholesky_ex) bound_ms "
+              f"{t['bound_ms']:.4f} ({t['bound_by']})", flush=True)
+        print(twin_line("chol_blocked", t), flush=True)
         if m == CHOL_WIDTHS[0]:
             entry.update(max_abs_err=err, row_rel_err=max(rel.values()),
                          **t)
@@ -1428,6 +1455,12 @@ def profile_phase(torch, chol):
     expect = 2 * len(CHOL_WIDTHS) * PROFILE_ITERS
     print(f"profile_linalg: B={B} {PROFILE_ITERS} calls a line in "
           f"{wall:.1f} s; launches {launches}", flush=True)
+    for m in CHOL_WIDTHS:
+        lib = res[f"torch cholesky_ex({m})"]
+        print(f"profile_linalg: m={m} one kernel, chained: "
+              f"cholesky_batched {res[f'B7 cholesky_batched({m})'] / lib:.3f}"
+              f" x and chol_lanes {res[f'B1 chol_lanes({m})'] / lib:.3f} x "
+              f"cholesky_ex ({lib:.4f} ms)", flush=True)
     if launches["chol_blocked"] != expect:
         raise AssertionError(f"launches {launches}, expected chol_blocked "
                              f"{expect}")
@@ -1617,6 +1650,8 @@ def check_oos_shape(torch, name, kernel, plain, inputs, backward=False):
           f"{t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
           f"{t['library_ms']} bound_ms {t['bound_ms']:.4f} "
           f"({t['bound_by']})", flush=True)
+    if name in TWIN:
+        print(twin_line(name, t), flush=True)
     if use > 1.0:
         raise AssertionError(f"{name} at m={m}: error above its limit "
                              f"({use:.3f} x)")

@@ -15,7 +15,9 @@ package, on the CPU.
   >= 0.1, entries O(1)), and the zero row and column exactly zero in
   both;
 * the linear-algebra profile (``tools/profile_linalg.py``) runs every
-  line at a tiny batch.
+  line at a tiny batch;
+* the breakdown tool's cuts (``tools/chol_breakdown.py``) still match the
+  kernel's source.
 
 The hand-written kernel itself is held against the plain version on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -119,3 +121,16 @@ def test_profile_linalg_runs_every_line_on_the_cpu():
     assert len(res) == 10 and all(ms > 0 for ms in res.values())
     assert {"B7 cholesky_batched(228)", "B7 cholesky_batched(60)",
             "B1 chol_lanes(228)", "torch cholesky_ex(228)"} <= set(res)
+
+
+def test_breakdown_cuts_each_step_out_of_the_kernel_source():
+    """The breakdown tool (``tools/chol_breakdown.py``) times the kernel
+    with steps cut from its source: every cut still matches the source,
+    and removes what it names and nothing else."""
+    from xivo_tpu_torch.tools import chol_breakdown as cb
+    full = cb.variant_source("full")
+    for step, lines in cb.CUTS.items():
+        src = cb.variant_source(step)
+        assert len(full) - len(src) == sum(len(line) for line in lines)
+    assert len(cb.variant_source("all")) == len(full) - sum(
+        len(line) for lines in cb.CUTS.values() for line in lines)

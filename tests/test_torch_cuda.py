@@ -10,9 +10,14 @@ Each kernel is held against its plain PyTorch version (which the CPU
 tests hold against the JAX package) on the same float32 inputs.
 Cholesky kernels: tolerance 1e-4 absolute: well-conditioned inputs
 (eigenvalues >= 0.1, entries O(1)), two float32 factorizations summing
-in another order; the blocked Cholesky (B7) at every panel width it
-builds, against its plain version and against B1, and B1 at 229 (OOS
-measurement compression). A short run of the recommended accuracy config
+in another order; the blocked Cholesky (whatever ``block`` the
+reference's signature passes: the kernel has one panel width) against its
+plain version, under both of its names (``chol_lanes``, B1,
+and ``cholesky_batched``, B7: one kernel, each name counted on its own
+counter) at the filter's widths (228, 229, 60, the tiny Dims' 96) and
+batches of 1, 2 and 256; B1 at 229 on a rank-deficient bordered Gram (OOS
+measurement compression), held by its backward error within
+``chip_smoke``'s ``BACKWARD_TOL`` (see there why not row by row). A short run of the recommended accuracy config
 at full width under the sync debug mode, with its launches a frame.
 LK kernels: on the inputs one pyramidal LK call on a shifted texture
 gives them; the template windows within 1e-5 of each
@@ -36,9 +41,9 @@ import pytest
 import torch
 
 from chip_smoke import (GN_UNCONV_TOL, MAP_FUSE_TOL32, MAP_FUSE_TOL64,
-                        Recorder, compare_retire, make_mapped_run, make_run,
-                        mapped_config, mapped_stream, random_hamming_inputs,
-                        texture)
+                        Recorder, backward_use, compare_retire,
+                        make_mapped_run, make_run, mapped_config,
+                        mapped_stream, random_hamming_inputs, texture)
 from xivo_tpu_torch.frontend import lk as flk
 from xivo_tpu_torch.frontend.image import build_pyramid
 from xivo_tpu_torch.ops import chol
@@ -90,6 +95,46 @@ def test_chol_kernel_matches_plain_version(cuda, m):
     zero_rows_stay_zero(L, dead)
 
 
+@pytest.mark.parametrize("B", [1, 2, 256])
+@pytest.mark.parametrize("m", [96, 60, 228, 229])
+def test_one_kernel_serves_b1_and_b7(cuda, m, B):
+    """chol_lanes (B1) and cholesky_batched (B7) launch the one blocked
+    kernel at its default panel: the same L bit for bit, each launch
+    counted on its own name only."""
+    dead = [0, m // 3, m - 2]
+    G = psd_batch(B, m, dead, seed=m + B)
+    n1, n7 = lc.CHOL.launches, chol.CHOL_BLOCKED.launches
+    L = lc.chol_lanes(G)
+    assert (lc.CHOL.launches, chol.CHOL_BLOCKED.launches) == (n1 + 1, n7)
+    L7 = chol.cholesky_batched(G)
+    assert (lc.CHOL.launches, chol.CHOL_BLOCKED.launches) == (n1 + 1, n7 + 1)
+    close(L, lc.chol_plain(G))
+    zero_rows_stay_zero(L, dead)
+    torch.cuda.synchronize()
+    assert torch.equal(L, L7)
+
+
+def test_chol_lanes_on_a_rank_deficient_bordered_gram(cuda):
+    """OOS measurement compression's input at 229: the bordered Gram
+    [[H^T H, H^T inn], [., |inn|^2]] of a rank-27 stack with a 1e-6
+    relative jitter, exactly-zero columns of H for empty slots. Rows past
+    the rank are set by the jitter, where two correct float32
+    factorizations part by ~1e-2, so L is held by its backward error."""
+    rng = np.random.default_rng(229)
+    B, rows, rank, D = 64, 54, 27, 228
+    H = rng.standard_normal((B, rows, rank)) @ rng.standard_normal(
+        (B, rank, D))
+    empty = [5, 100, 200, 227]
+    H[:, :, empty] = 0.0
+    Mb = np.concatenate([H, rng.standard_normal((B, rows, 1))], axis=-1)
+    Gb = Mb.transpose(0, 2, 1) @ Mb
+    Gb += np.einsum("bii,ij->bij", Gb, 1e-6 * np.eye(D + 1))
+    G = torch.tensor(Gb, dtype=torch.float32, device="cuda")
+    use, own = backward_use(torch, lc.chol_lanes, lc.chol_plain, [G])
+    assert use <= 1.0, (use, own)
+    zero_rows_stay_zero(lc.chol_lanes(G), empty)
+
+
 @pytest.mark.parametrize("m", [12, 60, 128])
 def test_chol_inv_and_tri_inv_kernels_match_plain_versions(cuda, m):
     dead = [1, m // 2]
@@ -115,6 +160,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         lc.chol_lanes(G.transpose(1, 2))
     with pytest.raises(RuntimeError):  # two packed 300 x 300 > 227 KB
         lc.chol_inv_lanes(psd_batch(1, 300, [0], seed=0))
+    with pytest.raises(RuntimeError):  # a packed 400 x 400 > 227 KB
+        lc.chol_lanes(psd_batch(1, 400, [0], seed=0))
 
 
 @pytest.mark.parametrize("m,block", [(12, 32), (60, 32), (228, 32),
@@ -128,6 +175,8 @@ def test_chol_blocked_kernel_matches_plain_version_and_b1(cuda, m, block):
     close(L, chol.cholesky_plain(G))
     close(L, lc.chol_lanes(G))              # B1 keeps the same contract
     zero_rows_stay_zero(L, dead)
+    # one panel width: the reference's `block` changes nothing
+    assert torch.equal(L, chol.cholesky_batched(G))
 
 
 def test_cholesky_psd_sends_any_batch_to_one_launch(cuda):
@@ -144,8 +193,8 @@ def test_chol_blocked_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     G = psd_batch(2, 8, [0], seed=0)
     with pytest.raises(TypeError):
         chol.cholesky_batched(G.double())
-    with pytest.raises(ValueError):
-        chol.cholesky_batched(G, block=64)
+    with pytest.raises(ValueError):     # an empty batch launches nothing
+        chol.cholesky_batched(G[:0])
     with pytest.raises(ValueError):
         chol.cholesky_batched(G.transpose(1, 2))
     with pytest.raises(RuntimeError):  # a packed 400 x 400 > 227 KB

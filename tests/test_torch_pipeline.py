@@ -220,6 +220,7 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.ops.hamming, xivo_tpu_torch.ops.chol\n"
         "import xivo_tpu_torch.filter.oos, xivo_tpu_torch.filter.init_cov\n"
         "import xivo_tpu_torch.tools.profile_linalg\n"
+        "import xivo_tpu_torch.tools.chol_breakdown\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'xivo_tpu'\n"
         "       or m.startswith('xivo_tpu.')]\n"
@@ -265,7 +266,8 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     ({"use_OOS": True, "use_oc_meas": True}, "A.16"),
     ("use_depth_opt", "A.16"), ("use_1pt_RANSAC", "A.16"),
     ("use_huber", "A.16"), ("use_oc", "A.16"),
-    ("online_camera_calib", "A.16"), ("do_outlier_rejection", "A.12"),
+    ("online_camera_calib", "A.16"), (("fast_substeps", 0), "A.16a"),
+    ("do_outlier_rejection", "A.12"),
     (("tracker_type", "MATCH"), "A.12"), (("detector", "GFTT"), "A.12"),
     (("descriptor_type", "orb"), "A.12"), (("cam_model", "equi"), "A.12")])
 def test_options_outside_the_slice_raise(option, item):

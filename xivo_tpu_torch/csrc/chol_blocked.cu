@@ -1,231 +1,377 @@
-// Blocked right-looking batched Cholesky for Hopper (sm_90a): the port of
-// the Pallas kernel of xivo_tpu/ops/chol_pallas.py.
+// Blocked batched Cholesky for Hopper (sm_90a). One kernel replaces two
+// Pallas kernels that compute the same function under the same contract:
 //
-//   xivo_chol_blocked_f32  replaces _chol_kernel (chol_pallas.py:37)  (B7)
+//   xivo_tpu/ops/lanes_chol.py:103  _chol_lanes_kernel  (B1, the filter's
+//                                   per-frame Cholesky at 228 and 229)
+//   xivo_tpu/ops/chol_pallas.py:37  _chol_kernel        (B7, the blocked
+//                                   Cholesky of the linear-algebra profile)
 //
-// Contract (B1's, the same as the TPU kernel's): (B, m, m) row-major
-// float32, one matrix per batch item, only the lower triangle read. A
-// pivot <= 1e-30 zeroes its column of L, so exactly-zero rows and columns
-// of the input come out exactly zero; the strict upper triangle of L is
-// zero. Every product is a float32 FMA (the TPU kernel's trailing update
-// runs at Precision.HIGHEST; no TF32 here).
+// Contract: (B, m, m) row-major float32, one matrix per batch item, only
+// the lower triangle read. A pivot <= 1e-30 zeroes its column of L, so
+// exactly-zero rows and columns of the input come out exactly zero; the
+// strict upper triangle of L is zero. Every product is a float32 FMA (the
+// TPU kernels run at Precision.HIGHEST; no TF32 here). Any m whose packed
+// triangle fits one block's shared memory (m <= ~330); a larger m fails as
+// an invalid launch.
 //
-// What bounds it on the card: at (256, 228, 228) the function reads the
-// lower triangle and writes L once (~80 MB), and does m^3/3 flops per
-// matrix (~1 GFLOP in all): a few microseconds at the card's rates. What
-// sets its time is the dependence chain of the factorization. B1
-// (lanes_chol.cu) walks it one column at a time, with two block-wide
-// barriers a column (456 at m = 228). This kernel keeps the TPU kernel's
-// blocked right-looking structure, which is what shortens that chain; the
-// TPU's batch-in-lanes layout, one-hot masks and static 128-wide blocks
-// have no meaning here and are not carried over. One CTA per matrix; the
-// packed lower triangle lives in shared memory (104 KB at m = 228, so two
-// CTAs share an SM and B = 256 runs in one wave), and for each panel of
-// T columns (T = 8, 16 or 32; the wrapper's default is 16):
-//   1. one warp factors the T x T diagonal block in registers, a lane per
-//      row, the column of each step passed by warp shuffles (no block-wide
-//      barrier inside the panel), with the pivot floor;
-//   2. every row below the block solves against it on its own, a thread
-//      per row, its T entries in registers, the block read from a dense
-//      copy in shared memory (all threads read the same entry: broadcast);
-//   3. the deferred trailing update A22 -= P P^T on the lower triangle
-//      only: each thread owns a 4 x 4 tile of A22 and accumulates the
-//      panel's T products in registers (a register-tiled SYRK reading P
-//      from the packed triangle), then subtracts once.
-// Three barriers a panel: 45 at m = 228 with T = 16 (24 with T = 32)
-// against B1's 456. The ragged edge (228 = 14 x 16 + 4, 60 = 3 x 16 + 12)
-// is masked: the last panel is narrower, and the tiles past m are cut.
+// What bounds it: at (256, 228, 228) the function reads the lower triangle
+// and writes L once (~80 MB, 0.024 ms at 3.35 TB/s) and does m^3/3 flops a
+// matrix (~1 GFLOP, 0.015 ms at 67 TFLOP/s): the bound is the bytes. What
+// sets the time is the factorization's dependence chain, a pivot at a
+// time, and the phases that wait on it: a column at a time, B1 took 456
+// block-wide barriers a matrix; with a warp-factored diagonal block a
+// panel, 45 (B7), and then the trailing update's shared-memory traffic (0.5
+// words a FMA, bank conflicts on a row-major packed triangle). The design:
+//   - one CTA per matrix, the lower triangle packed BY COLUMNS in shared
+//     memory: column j holds rows 4*(j/4) .. mp - 1 (mp = m rounded up to
+//     8), so every column starts on 16 bytes and (i, j) is float4-aligned
+//     when 4 | i. 109,440 bytes at m = 228 (109,456 at 229): two CTAs an
+//     SM, and B = 256 runs in one wave;
+//   - panels of 16 columns. Look-ahead: while the other warps write panel
+//     p's columns of L to device memory and apply its trailing update,
+//     warp 0 updates the next panel's 16 x 16 diagonal block (two lanes a
+//     row, half the panel's columns each) and factors it in registers (a
+//     lane per row, the column of each step passed by shuffles), so the
+//     pivot chain runs behind the update. Then every thread solves a row
+//     of the next panel below its block against the factored block, read
+//     from shared memory. Two block-wide barriers a panel: 32 at m = 228;
+//   - the trailing update A22 -= P P^T is a register-tiled SYRK: a thread
+//     per 8 x 8 tile of the lower triangle (from a tile list made once per
+//     CTA: no square-root search) reads four float4 of the panel's columns
+//     a step for 64 FMAs (0.25 words a FMA); the lanes of a quarter-warp
+//     take consecutive row tiles, the two row halves of a tile swapped on
+//     every other group of four lanes, so the float4 reads are free of
+//     bank conflicts;
+//   - device memory: the load is cp.async, coalesced along rows (panel
+//     0's columns in a group of their own, so its block is factored while
+//     the rest streams in); the zero upper triangle is written at the
+//     start, and each panel's columns of L as soon as they are final,
+//     behind the chain.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kFloor = 1e-30f;
-constexpr int kTile = 4;            // trailing update: kTile^2 outputs a thread
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kT = 16;                      // panel width
+constexpr int kBlock = kT * kT + kT;        // a factored block, see below
 
-// Packed lower-triangular storage: row i starts at tri(i), holds columns
-// 0..i.
-__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+// Rows padded to the SYRK's 8-row tiles (a panel starts on a tile).
+__host__ __device__ __forceinline__ int padded(int m) { return (m + 7) & ~7; }
 
-// Load the lower triangle of a row-major (m, m) matrix, packed; a warp per
-// row, lanes across the row.
-__device__ void load_lower(const float* __restrict__ src, float* dst, int m) {
-    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-    for (int i = threadIdx.x >> 5; i < m; i += nw)
-        for (int k = lane; k <= i; k += 32)
-            dst[tri(i) + k] = src[(size_t)i * m + k];
+// Column-major packed lower triangle: the offset of column j's first
+// stored row (row 4 * (j / 4)); col_off(m, mp) is the whole size.
+__host__ __device__ __forceinline__ int col_off(int j, int mp) {
+    const int g = j >> 2, r = j & 3;
+    return 4 * g * mp - 8 * g * (g - 1) + r * (mp - 4 * g);
 }
 
-// Store a packed lower triangle as a row-major (m, m) matrix, zeroing the
-// strict upper triangle.
-__device__ void store_lower(const float* src, float* __restrict__ dst,
-                            int m) {
-    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-    for (int i = threadIdx.x >> 5; i < m; i += nw)
-        for (int k = lane; k < m; k += 32)
-            dst[(size_t)i * m + k] = (k <= i) ? src[tri(i) + k] : 0.0f;
+// (i, j) lives at cbase(j, mp) + i.
+__device__ __forceinline__ int cbase(int j, int mp) {
+    return col_off(j, mp) - 4 * (j >> 2);
 }
 
-// Step 1, run by warp 0 alone: factor the w x w diagonal block at (c0, c0)
-// in place. Lane r holds row c0 + r of the block; lanes r >= w (the ragged
-// edge) hold zeros, which stay zero and give dead pivots past w. Writes a
-// dense copy of the block's L to l11 (T rows of stride T + 1) and the
-// reciprocal pivots (0 for a dead pivot) to rdiag, for step 2.
-template <int T>
-__device__ void factor_diag(float* A, float* l11, float* rdiag, int c0,
-                            int w) {
-    const int r = threadIdx.x;
-    const bool row_ok = r < w;
-    float a[T];
+// For j0 a multiple of 4: cbase(j0 + l) = cbase(j0) + l (mp - j0) - 4
+// quad_sum(l), so a panel's column bases need one base and one stride.
+__host__ __device__ constexpr int quad_sum(int l) {
+    int s = 0;
+    for (int t = 1; t <= l; ++t) s += t >> 2;
+    return s;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+
+// Columns jlo .. jhi - 1 into the packed layout, a warp per row and its
+// lanes across the row: each warp's reads are one coalesced run of the
+// row, and each lane's copy lands in its column. Stored entries outside
+// the lower triangle, and rows m .. mp - 1, are 0.
+__device__ void load_rows(const float* __restrict__ src, float* A, int m,
+                          int mp, int jlo, int jhi) {
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int i = threadIdx.x >> 5; i < mp; i += nw) {
+        const int jend = min(jhi, (i & ~3) + 4);   // stored: 4 (j / 4) <= i
+        for (int j = jlo + lane; j < jend; j += 32) {
+            float* dst = A + cbase(j, mp) + i;
+            if (j <= i && i < m)
+                cp_async4(dst, src + (size_t)i * m + j);
+            else
+                *dst = 0.0f;
+        }
+    }
+}
+
+// The SYRK's tiles, (row tile a, column tile b), b <= a < nt, as
+// (a << 8) | b, by b descending and a ascending: the tiles whose column
+// tile is b0 or later are the first (nt - b0)(nt - b0 + 1) / 2.
+__device__ void make_tiles(unsigned short* tiles, int nt) {
+    const int n = nt * (nt + 1) / 2;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        int u = 0;
+        while ((u + 1) * (u + 2) / 2 <= t) ++u;
+        const int b = nt - 1 - u, a = b + (t - u * (u + 1) / 2);
+        tiles[t] = (unsigned short)((a << 8) | b);
+    }
+}
+
+// The strict upper triangle of L, a warp per row.
+__device__ void zero_upper(float* __restrict__ dst, int m) {
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int i = threadIdx.x >> 5; i < m; i += nw)
+        for (int j = i + 1 + lane; j < m; j += 32)
+            dst[(size_t)i * m + j] = 0.0f;
+}
+
+// Warp 0 alone: the w x w diagonal block at (n0, n0), first updated by
+// the 16 final columns of the panel at c0 (c0 < 0: no update; lanes r and
+// r + 16 take row r, each for half the columns), then factored in
+// registers, a lane per row, the column of each step passed by shuffles.
+// Lanes r >= w hold zeros, which stay zero and give dead pivots past w.
+// Writes the factored block to blk: L[k][j] at 16 j + k, then the
+// reciprocal pivots (0 for a dead pivot).
+__device__ void factor_block(const float* A, float* blk, int mp, int c0,
+                             int n0, int w) {
+    const int lane = threadIdx.x, r = lane & (kT - 1), h = lane / kT;
+    const bool row = r < w;
+    const float* D = A + cbase(n0, mp);
+    const int ds = mp - n0;
+    float a[kT];
 #pragma unroll
-    for (int k = 0; k < T; ++k)
-        a[k] = (row_ok && k <= r) ? A[tri(c0 + r) + c0 + k] : 0.0f;
+    for (int k = 0; k < kT; ++k)
+        a[k] = (h == 0 && row && k <= r)
+                   ? D[k * ds - 4 * quad_sum(k) + n0 + r] : 0.0f;
+    if (c0 >= 0) {
+        // for the last block, rows past mp read the next column's first
+        // entries (it exists: n0 < m); they reach only a[k] with k >= w,
+        // which nothing reads as L
+        const float* P = A + cbase(c0, mp) + n0;
+        const int ps = mp - c0;
 #pragma unroll
-    for (int j = 0; j < T; ++j) {
+        for (int l = 0; l < kT / 2; ++l) {
+            const int ll = l + h * (kT / 2);
+            const float* col =
+                P + ll * ps -
+                4 * (h ? quad_sum(l + kT / 2) : quad_sum(l));
+            const float pr = row ? col[r] : 0.0f;
+#pragma unroll
+            for (int q = 0; q < kT; q += 4) {
+                const float4 v = ld4(col + q);
+                a[q] -= pr * v.x;
+                a[q + 1] -= pr * v.y;
+                a[q + 2] -= pr * v.z;
+                a[q + 3] -= pr * v.w;
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kT; ++k) {
+            a[k] += __shfl_down_sync(kFull, a[k], kT);
+            if (h) a[k] = 0.0f;
+        }
+    }
+    // a[k] for k > r is never read as L (lj is 0 there) and is zeroed
+    // before it leaves the warp
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
         const float piv = __shfl_sync(kFull, a[j], j);
         const bool alive = piv > kFloor;
-        const float d = alive ? sqrtf(piv) : 0.0f;
-        const float rd = alive ? 1.0f / d : 0.0f;
+        const float rd = alive ? rsqrtf(piv) : 0.0f;
+        const float d = piv * rd;
         const float lj = (r == j) ? d : (r > j ? a[j] * rd : 0.0f);
         a[j] = lj;
-        if (r == j) rdiag[j] = rd;
+        if (lane == 0) blk[kT * kT + j] = rd;
 #pragma unroll
-        for (int k = j + 1; k < T; ++k) {
-            const float lk = __shfl_sync(kFull, lj, k);
-            if (k <= r) a[k] -= lj * lk;
-        }
+        for (int k = j + 1; k < kT; ++k)
+            a[k] -= lj * __shfl_sync(kFull, lj, k);
     }
-    if (r < T) {
+    if (lane < kT) {
 #pragma unroll
-        for (int k = 0; k < T; ++k) {
-            if (row_ok && k <= r) A[tri(c0 + r) + c0 + k] = a[k];
-            l11[r * (T + 1) + k] = (k <= r) ? a[k] : 0.0f;
-        }
+        for (int k = 0; k < kT; ++k) blk[k * kT + r] = k <= r ? a[k] : 0.0f;
     }
 }
 
-// Step 2: rows c0 + w .. m - 1 of the panel, each solved against the
-// factored block by the same column steps as the right-looking sweep
-// (scale by the reciprocal pivot, then update the later columns).
-template <int T>
-__device__ void solve_panel(float* A, const float* l11, const float* rdiag,
-                            int m, int c0, int w) {
-    for (int i = c0 + w + threadIdx.x; i < m; i += blockDim.x) {
-        float* row = A + tri(i) + c0;
-        float x[T];
+// The rows below the diagonal block of the full panel at c0, a thread per
+// row, each solved against the factored block by the column steps of the
+// right-looking sweep (scale by the reciprocal pivot, then update the
+// later columns), the block read from shared memory (a broadcast).
+__device__ void solve_below(float* A, const float* blk, int m, int mp,
+                            int c0) {
+    float* P = A + cbase(c0, mp);
+    const int ps = mp - c0;
+    for (int i = c0 + kT + threadIdx.x; i < m; i += blockDim.x) {
+        float x[kT];
 #pragma unroll
-        for (int k = 0; k < T; ++k) x[k] = (k < w) ? row[k] : 0.0f;
+        for (int k = 0; k < kT; ++k) x[k] = P[k * ps - 4 * quad_sum(k) + i];
 #pragma unroll
-        for (int j = 0; j < T; ++j) {
-            x[j] *= rdiag[j];
+        for (int j = 0; j < kT; ++j) {
+            x[j] *= blk[kT * kT + j];
 #pragma unroll
-            for (int k = j + 1; k < T; ++k) x[k] -= x[j] * l11[k * (T + 1) + j];
-        }
-#pragma unroll
-        for (int k = 0; k < T; ++k)
-            if (k < w) row[k] = x[k];
-    }
-}
-
-// Step 3: A[i][k] -= sum_l P[i][l] P[k][l] for n0 <= k <= i < m, where P is
-// the panel (columns c0 .. c0 + w - 1, final after step 2) and n0 = c0 + w.
-// The lower triangle of A22 is cut into kTile x kTile tiles, tile (ti, tk)
-// with tk <= ti numbered tri(ti) + tk; a thread per tile. The panel is
-// only read here and the tiles only written, so no barrier is needed
-// inside.
-__device__ void trailing_update(float* A, int m, int c0, int w) {
-    const int n0 = c0 + w;
-    const int nt = (m - n0 + kTile - 1) / kTile;
-    const int ntiles = nt * (nt + 1) / 2;
-    for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-        int ti = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
-        while (tri(ti + 1) <= t) ++ti;
-        while (tri(ti) > t) --ti;
-        const int tk = t - tri(ti);
-        const int i0 = n0 + ti * kTile, k0 = n0 + tk * kTile;
-        int pa[kTile], pb[kTile];
-#pragma unroll
-        for (int r = 0; r < kTile; ++r) {
-            pa[r] = tri(min(i0 + r, m - 1)) + c0;   // rows past m: cut below
-            pb[r] = tri(min(k0 + r, m - 1)) + c0;
-        }
-        float acc[kTile][kTile];
-#pragma unroll
-        for (int r = 0; r < kTile; ++r)
-#pragma unroll
-            for (int c = 0; c < kTile; ++c) acc[r][c] = 0.0f;
-        for (int l = 0; l < w; ++l) {
-            float a[kTile], b[kTile];
-#pragma unroll
-            for (int r = 0; r < kTile; ++r) {
-                a[r] = A[pa[r] + l];
-                b[r] = A[pb[r] + l];
+            for (int q = (j + 1) & ~3; q < kT; q += 4) {
+                const float4 v = ld4(blk + j * kT + q);
+                if (q > j) x[q] -= x[j] * v.x;
+                if (q + 1 > j) x[q + 1] -= x[j] * v.y;
+                if (q + 2 > j) x[q + 2] -= x[j] * v.z;
+                x[q + 3] -= x[j] * v.w;
             }
-#pragma unroll
-            for (int r = 0; r < kTile; ++r)
-#pragma unroll
-                for (int c = 0; c < kTile; ++c)
-                    acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
         }
 #pragma unroll
-        for (int r = 0; r < kTile; ++r)
-#pragma unroll
-            for (int c = 0; c < kTile; ++c) {
-                const int i = i0 + r, k = k0 + c;
-                if (i < m && k <= i) A[tri(i) + k] -= acc[r][c];
-            }
+        for (int k = 0; k < kT; ++k) P[k * ps - 4 * quad_sum(k) + i] = x[k];
     }
 }
 
-constexpr int kMaxThreads = 512;
+// The panel's columns of L (rows c0 .. m - 1) to device memory, by the
+// threads past warp 0: a run of 16 entries of a row for each 16 threads.
+__device__ void store_panel(const float* A, const float* blk,
+                            float* __restrict__ out, int m, int mp, int c0,
+                            int w) {
+    const int t = threadIdx.x - 32, col = t % kT;
+    if (col >= w) return;
+    const float* C = A + cbase(c0 + col, mp);
+    for (int i = c0 + t / kT; i < m; i += (blockDim.x - 32) / kT) {
+        const int r = i - c0;
+        out[(size_t)i * m + c0 + col] =
+            r < w ? (col <= r ? blk[col * kT + r] : 0.0f) : C[i];
+    }
+}
 
-// At most 512 threads and two CTAs an SM: up to 64 registers a thread.
-template <int T>
-__global__ void __launch_bounds__(kMaxThreads, 2)
+// A[i][k] -= sum_l P[i][l] P[k][l] for n0 + 16 <= i and n0 <= k <= i (P:
+// the panel's 16 columns from row n0 on, final in shared memory), by the
+// threads past warp 0; the next panel's diagonal block is warp 0's. A
+// thread per 8 x 8 tile; its rows i0 + 4s .. + 3 and i0 + 4(1 - s) .. + 3
+// with s = bit 2 of the thread, so the eight lanes of a quarter-warp read
+// eight distinct float4 bank groups; its columns k0 .. k0 + 7 are read by
+// the whole quarter-warp at once (a broadcast). Entries above the diagonal
+// inside a diagonal tile are computed and written into the column's
+// padding, which nothing reads; columns past m are not stored and not
+// written.
+__device__ void trailing_update(float* A, const unsigned short* tiles,
+                                int m, int mp, int c0) {
+    const int n0 = c0 + kT, nb = (mp >> 3) - (n0 >> 3);
+    const int count = nb * (nb + 1) / 2;
+    const int s = (threadIdx.x >> 2) & 1;
+    const float* P = A + cbase(c0, mp);
+    const int ps = mp - c0;
+    for (int t = threadIdx.x - 32; t < count; t += blockDim.x - 32) {
+        const int e = tiles[t];
+        const int i0 = 8 * (e >> 8), k0 = 8 * (e & 255);
+        if (i0 < n0 + kT) continue;
+        const int ia = i0 + 4 * s, ib = i0 + 4 * (s ^ 1);
+        float acc[8][8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+#pragma unroll
+        for (int l = 0; l < kT; ++l) {
+            const float* col = P + l * ps - 4 * quad_sum(l);
+            const float4 p0 = ld4(col + ia), p1 = ld4(col + ib);
+            const float4 q0 = ld4(col + k0), q1 = ld4(col + k0 + 4);
+            const float pa[8] = {p0.x, p0.y, p0.z, p0.w,
+                                 p1.x, p1.y, p1.z, p1.w};
+            const float qb[8] = {q0.x, q0.y, q0.z, q0.w,
+                                 q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+                    acc[r][c] = fmaf(pa[r], qb[c], acc[r][c]);
+        }
+        float* C = A + cbase(k0, mp);
+        const int cs = mp - k0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const int k = k0 + c, top = 4 * (k >> 2);
+            float* col = C + c * cs - 4 * quad_sum(c);
+            if (k < m) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int row = h ? ib : ia;
+                    if (row >= top) {
+                        float4 v = ld4(col + row);
+                        v.x -= acc[4 * h][c];
+                        v.y -= acc[4 * h + 1][c];
+                        v.z -= acc[4 * h + 2][c];
+                        v.w -= acc[4 * h + 3][c];
+                        st4(col + row, v);
+                    }
+                }
+            }
+        }
+    }
+}
+
+// 256 threads and two CTAs an SM: up to 128 registers a thread. Per
+// panel p: all threads solve p's rows below its (already factored)
+// diagonal block; barrier; then warp 0 updates and factors the next
+// panel's block (look-ahead) while the other warps write p's columns of L
+// to device memory and apply p's trailing update; barrier.
+__global__ void __launch_bounds__(kThreads, 2)
 chol_blocked_kernel(const float* __restrict__ in, float* __restrict__ out,
                     int m) {
-    extern __shared__ float smem[];
-    float* A = smem;                       // tri(m), becomes L
-    float* l11 = smem + tri(m);            // T x (T + 1)
-    float* rdiag = l11 + T * (T + 1);      // T
+    extern __shared__ __align__(16) float smem[];
+    const int mp = padded(m);
+    float* A = smem;
+    float* blocks = smem + col_off(m, mp);              // two, in turn
+    unsigned short* tiles =
+        reinterpret_cast<unsigned short*>(blocks + 2 * kBlock);
     const size_t off = (size_t)blockIdx.x * m * m;
-    load_lower(in + off, A, m);
+    in += off;
+    out += off;
+    load_rows(in, A, m, mp, 0, min(kT, m));
+    cp_async_commit();
+    load_rows(in, A, m, mp, kT, m);
+    cp_async_commit();
+    make_tiles(tiles, mp >> 3);
+    zero_upper(out, m);
+    cp_async_wait<1>();                 // panel 0's columns are in
     __syncthreads();
-    for (int c0 = 0; c0 < m; c0 += T) {
-        const int w = min(T, m - c0);
-        if (threadIdx.x < 32) factor_diag<T>(A, l11, rdiag, c0, w);
+    if (threadIdx.x < 32) factor_block(A, blocks, mp, -1, 0, min(kT, m));
+    __syncthreads();
+    for (int c0 = 0, p = 0; c0 < m; c0 += kT, ++p) {
+        const int w = min(kT, m - c0), n0 = c0 + kT;
+        const float* blk = blocks + (p & 1) * kBlock;
+        if (n0 < m) solve_below(A, blk, m, mp, c0);
+        if (p == 0) cp_async_wait<0>();
         __syncthreads();
-        solve_panel<T>(A, l11, rdiag, m, c0, w);
-        __syncthreads();
-        trailing_update(A, m, c0, w);
+        if (threadIdx.x < 32) {
+            if (n0 < m)
+                factor_block(A, blocks + ((p + 1) & 1) * kBlock, mp, c0, n0,
+                             min(kT, m - n0));
+        } else {
+            store_panel(A, blk, out, m, mp, c0, w);
+            if (n0 < m) trailing_update(A, tiles, m, mp, c0);
+        }
         __syncthreads();
     }
-    store_lower(A, out + off, m);
 }
 
-int threads_for(int m) { return m <= 64 ? 256 : kMaxThreads; }
-
-size_t smem_bytes(int m, int T) {
-    return ((size_t)m * (m + 1) / 2 + (size_t)T * (T + 1) + T)
-           * sizeof(float);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
-                                (int)cudaSharedmemCarveoutMaxShared);
-}
-
-template <int T>
-cudaError_t launch(const float* in, float* out, int batch, int m,
-                   cudaStream_t stream) {
-    chol_blocked_kernel<T><<<batch, threads_for(m), smem_bytes(m, T),
-                             stream>>>(in, out, m);
-    return cudaGetLastError();
+size_t smem_bytes(int m) {
+    const int mp = padded(m), nt = mp >> 3;
+    const size_t bytes =
+        ((size_t)col_off(m, mp) + 2 * kBlock) * sizeof(float) +
+        (size_t)nt * (nt + 1) / 2 * sizeof(unsigned short);
+    return (bytes + 15) & ~(size_t)15;
 }
 
 }  // namespace
@@ -233,10 +379,9 @@ cudaError_t launch(const float* in, float* out, int batch, int m,
 // Plain C entry points for ctypes. xivo_chol_blocked_init runs once per
 // device, before the first launch there: it lets the kernel use all the
 // shared memory a block may have on that device. xivo_chol_blocked_f32
-// launches on the given stream with panel width `block` (8, 16 or 32),
-// does not synchronize, and returns cudaGetLastError() (0 = launched); a
-// matrix too large for one block's shared memory fails there, as an
-// invalid launch.
+// launches on the given stream, does not synchronize, and returns
+// cudaGetLastError() (0 = launched); a matrix too large for one block's
+// shared memory fails there, as an invalid launch.
 extern "C" {
 
 int xivo_chol_blocked_init(void) {
@@ -245,21 +390,23 @@ int xivo_chol_blocked_init(void) {
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(
             &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = prepare(chol_blocked_kernel<8>, smem);
-    if (err == cudaSuccess) err = prepare(chol_blocked_kernel<16>, smem);
-    if (err == cudaSuccess) err = prepare(chol_blocked_kernel<32>, smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            chol_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            chol_blocked_kernel,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
     return (int)err;
 }
 
 int xivo_chol_blocked_f32(const float* in, float* out, int batch, int m,
-                          int block, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (block) {
-        case 8: return (int)launch<8>(in, out, batch, m, s);
-        case 16: return (int)launch<16>(in, out, batch, m, s);
-        case 32: return (int)launch<32>(in, out, batch, m, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+                          void* stream) {
+    chol_blocked_kernel<<<batch, kThreads, smem_bytes(m),
+                          (cudaStream_t)stream>>>(in, out, m);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
-// Batched Cholesky, fused Cholesky + inverse, and triangular inverse for
-// Hopper (sm_90a): the port of the three Pallas kernels of
-// xivo_tpu/ops/lanes_chol.py.
+// Fused Cholesky + inverse, and triangular inverse for Hopper (sm_90a):
+// the port of two of the three Pallas kernels of xivo_tpu/ops/lanes_chol.py.
 //
-//   xivo_chol_f32      replaces _chol_lanes_kernel     (lanes_chol.py:103)
 //   xivo_chol_inv_f32  replaces _chol_inv_lanes_kernel (lanes_chol.py:108)
 //   xivo_tri_inv_f32   replaces _tri_inv_lanes_kernel  (lanes_chol.py:133)
+//
+// The third, _chol_lanes_kernel (lanes_chol.py:103, the plain Cholesky),
+// is replaced by the blocked kernel of chol_blocked.cu, which computes the
+// same function under the same contract.
 //
 // Contract (same as the TPU kernels): (B, m, m) row-major float32, one
 // matrix per batch item. A pivot <= 1e-30 zeroes its column of L (and its
@@ -14,21 +16,20 @@
 // triangle of every input is read.
 //
 // What bounds these on the card: the square-root filter's main path calls
-// them at m = 228 (xivo_chol_f32, the per-frame recompression) and m = 60
-// (the innovation factor) for B = 256 sequences. The arithmetic is tiny
-// (m^3/3 flops per matrix) and the bytes are one read and one write of
-// the batch, but a Cholesky is a chain of m dependent column steps: the
-// kernel is bound by that latency and by the barrier each step needs, not
-// by bytes or FLOPs. The TPU kernel put the batch in the vector lanes to
-// vectorize the chain; here the batch maps to CTAs instead (one CTA per
-// matrix, so every SM runs its own chains) and the matrix lives in shared
-// memory, so each column step costs two __syncthreads and shared-memory
-// traffic only: no device-memory round trip inside the chain. Only the
-// lower triangle is kept, packed (m(m+1)/2 floats: 102 KiB at m = 228), so
-// two CTAs fit on an SM and B = 256 runs in one wave over 132 SMs. The
-// trailing update gives each warp whole rows, its lanes across columns,
-// which keeps shared-memory accesses conflict-free. Making the chain
-// shorter (blocked panels) is later work.
+// them at m = 60 (the innovation factor) and, with OOS updates, m = 120
+// for B = 256 sequences. The arithmetic is tiny (m^3/3 flops per matrix
+// per output) and the bytes are one read and one write of the batch, but
+// a Cholesky is a chain of m dependent column steps: the kernels are bound
+// by that latency and by the barrier each step needs, not by bytes or
+// FLOPs. The TPU kernels put the batch in the vector lanes to vectorize
+// the chain; here the batch maps to CTAs instead (one CTA per matrix, so
+// every SM runs its own chains) and the matrices live in shared memory,
+// so each column step costs two __syncthreads and shared-memory traffic
+// only: no device-memory round trip inside the chain. Only lower
+// triangles are kept, packed (m(m+1)/2 floats each). The trailing update
+// gives each warp whole rows, its lanes across columns, which keeps
+// shared-memory accesses conflict-free. Making the chain shorter (blocked
+// panels, as chol_blocked.cu does) is later work.
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,25 +106,6 @@ __device__ void inverse_row(const float* Lt, float* inv, int j, float rd) {
     }
 }
 
-// At most 1024 threads, two CTAs per SM: the compiler keeps to 32
-// registers a thread so that both fit.
-__global__ void __launch_bounds__(1024, 2)
-chol_kernel(const float* __restrict__ in, float* __restrict__ out, int m) {
-    extern __shared__ float smem[];
-    float* A = smem;             // tri(m), becomes L
-    float* col = smem + tri(m);  // m
-    const size_t off = (size_t)blockIdx.x * m * m;
-    load_lower(in + off, A, m);
-    __syncthreads();
-    for (int j = 0; j < m; ++j) {
-        scale_column(A, col, m, j);
-        __syncthreads();
-        trailing_update(A, col, m, j);
-        __syncthreads();
-    }
-    store_lower(A, out + off, m);
-}
-
 __global__ void chol_inv_kernel(const float* __restrict__ in,
                                 float* __restrict__ out_l,
                                 float* __restrict__ out_inv, int m) {
@@ -196,18 +178,9 @@ int xivo_lanes_chol_init(void) {
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(
             &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = prepare(chol_kernel, smem);
     if (err == cudaSuccess) err = prepare(chol_inv_kernel, smem);
     if (err == cudaSuccess) err = prepare(tri_inv_kernel, smem);
     return (int)err;
-}
-
-int xivo_chol_f32(const float* in, float* out, int batch, int m,
-                  void* stream) {
-    const size_t smem = (tri_floats(m) + m) * sizeof(float);
-    chol_kernel<<<batch, threads_for(m), smem, (cudaStream_t)stream>>>(
-        in, out, m);
-    return (int)cudaGetLastError();
 }
 
 int xivo_chol_inv_f32(const float* in, float* out_l, float* out_inv,

@@ -140,6 +140,10 @@ def check_supported(cfg: VIOConfig):
             "xivo_tpu_torch runs covariance_form='sqrt' with "
             "propagation_mode='fast'; the full covariance form and the "
             "reference/batched propagation come with ROADMAP A.16")
+    if cfg.fast_substeps <= 0:
+        raise NotImplementedError(
+            f"fast_substeps={cfg.fast_substeps}: the reference's adaptive "
+            "propagation loop at fast_substeps <= 0 comes with ROADMAP A.16a")
     if cfg.online_camera_calib:
         raise NotImplementedError(
             "online camera calibration comes with ROADMAP A.16")

@@ -1,11 +1,15 @@
 """Batched Cholesky / Cholesky+inverse / triangular inverse (port of
 ``xivo_tpu/ops/lanes_chol.py``).
 
-Three wrappers, one hand-written CUDA kernel each (``csrc/lanes_chol.cu``):
+Three wrappers, one hand-written CUDA kernel each:
 
 * ``chol_lanes(G)``      -> L        replaces ``_chol_lanes_kernel``
+  (B1): the blocked kernel of ``csrc/chol_blocked.cu``, which also
+  serves ``ops/chol.py`` (B7), the same function under the same contract
 * ``chol_inv_lanes(G)``  -> (L, L^-1) replaces ``_chol_inv_lanes_kernel``
+  (``csrc/lanes_chol.cu``)
 * ``tri_inv_lanes(L)``   -> L^-1     replaces ``_tri_inv_lanes_kernel``
+  (``csrc/lanes_chol.cu``)
 
 All take (B, m, m) and keep the reference's numerical contract: a pivot
 at or below 1e-30 zeroes its column of L (its row of L^-1), so
@@ -67,8 +71,7 @@ def chol_inv_plain(G):
 _p, _i = ctypes.c_void_p, ctypes.c_int
 _LIB = _build.Library(
     "lanes_chol",
-    {"xivo_chol_f32": [_p, _p, _i, _i, _p],
-     "xivo_chol_inv_f32": [_p, _p, _p, _i, _i, _p],
+    {"xivo_chol_inv_f32": [_p, _p, _p, _i, _i, _p],
      "xivo_tri_inv_f32": [_p, _p, _i, _i, _p]},
     init="xivo_lanes_chol_init")   # shared-memory limits, once per device
 
@@ -88,17 +91,13 @@ def _check_input(X):
 
 
 def chol_lanes(G: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky of (B, m, m) PSD matrices (masked-pivot contract)."""
+    """Lower Cholesky of (B, m, m) PSD matrices (masked-pivot contract):
+    on the card, the blocked kernel of ``csrc/chol_blocked.cu``, counted
+    on ``CHOL``."""
     if G.device.type == "cpu":
         return chol_plain(G)
-    B, m, _ = G.shape
-    _check_input(G)
-    out = torch.empty_like(G)
-    with torch.cuda.device(G.device):
-        err = _LIB.get(G.device).xivo_chol_f32(
-            G.data_ptr(), out.data_ptr(), B, m, _build.stream(G))
-    CHOL.launched(err)
-    return out
+    from . import chol
+    return chol.launch(G, CHOL)
 
 
 def chol_inv_lanes(G: torch.Tensor):

@@ -14,8 +14,8 @@ of the card.
 Primitives, at batch B (float32, TF32 off):
 - ``torch.linalg.cholesky_ex`` at 60 and 228 (the library yardstick);
 - B7, ``ops.chol.cholesky_batched``, at 228 and 60;
-- B1, ``ops.lanes_chol.chol_lanes``, the other hand-written Cholesky,
-  at 228 and 60;
+- B1, ``ops.lanes_chol.chol_lanes``, the same kernel under B1's name
+  (``csrc/chol_blocked.cu`` serves both), at 228 and 60;
 - ``solve_triangular`` with a 60 x 60 factor against 418 and 60
   right-hand sides (``sqrt_update``'s shapes);
 - the 228 x 357 Gram and the 60 x 60 @ 60 x 357 product.
