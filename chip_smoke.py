@@ -15,9 +15,12 @@ PCW path (slice 1):
    plain PyTorch version on those real matrices and on random PSD
    matrices with planted zero rows, and time kernel, plain version and
    the library call (``cholesky_ex``, ``solve_triangular``; on the same
-   input with its dead rows made unit); B1 is the blocked kernel of
-   ``csrc/chol_blocked.cu``, which also serves B7, and is timed under both
-   names beside ``cholesky_ex`` with the ratio printed;
+   input with its dead rows made unit; beside B2, which no one call
+   matches, the two calls ``cholesky_ex`` then ``solve_triangular``);
+   all three are kernels of ``csrc/chol_blocked.cu``: B1 the blocked
+   Cholesky, which also serves B7 and is timed under both names beside
+   ``cholesky_ex`` with the ratio printed, B2 the same factorization
+   followed by the blocked inversion stage, B3 a load followed by it;
 4. check the CUDA path against the port's CPU path (plain versions) at
    full width on a small batch (B = 2, 10 frames);
 5. run the PCW main path: float32, default Dims (D = 228), B = 256
@@ -176,7 +179,8 @@ PROFILE_FRAMES = (30, 40)   # the window that phase 9 profiles
 
 DEV = "cuda"            # the card every phase runs on
 # the kernels of csrc/*.cu, as the profiler names them
-OWN_KERNELS = ("chol_blocked_kernel", "chol_inv_kernel", "tri_inv_kernel",
+OWN_KERNELS = ("chol_blocked_kernel", "chol_inv_blocked_kernel",
+               "tri_inv_blocked_kernel",
                "templates_kernel", "gn_kernel", "hamming_nn_kernel")
 REPLACES = {"chol_lanes": "xivo_tpu/ops/lanes_chol.py:103",
             "chol_blocked": "xivo_tpu/ops/chol_pallas.py:37",
@@ -440,6 +444,17 @@ def library_call(torch, name):
     return None     # no one call gives L and L^-1
 
 
+def library_two_calls(torch):
+    """B2's pair from the library: cholesky_ex, then solve_triangular on
+    its factor (two calls, so not B2's library_ms)."""
+    def pair(G):
+        L = torch.linalg.cholesky_ex(G)[0]
+        return L, torch.linalg.solve_triangular(
+            L, torch.eye(L.shape[-1], device=L.device).expand(L.shape),
+            upper=False)
+    return pair
+
+
 def chol_times(torch, name, kernel, plain, X):
     """Device ms of kernel, plain version and library call on X (the
     library on X with its dead rows made unit), and the bound: each
@@ -456,6 +471,9 @@ def chol_times(torch, name, kernel, plain, X):
              library_ms=(cuda_ms(torch, lambda: library(Xu))
                          if library else None),
              bound_ms=bound_ms, bound_by=bound_by, shape=[batch, m, m])
+    if name == "chol_inv_lanes":
+        pair = library_two_calls(torch)
+        t["library_two_calls_ms"] = cuda_ms(torch, lambda: pair(Xu))
     if name in TWIN:
         twin = chol_named(TWIN[name])
         t.update(twin=TWIN[name], twin_ms=cuda_ms(torch, lambda: twin(X)))
@@ -471,6 +489,13 @@ def twin_line(name, t):
     return (f"kernel {name}: m={m} {t['ms']:.4f} ms = {t['ratio']:.3f} x "
             f"cholesky_ex ({t['library_ms']:.4f} ms); the same kernel as "
             f"{t['twin']} {t['twin_ms']:.4f} ms = {t['twin_ratio']:.3f} x")
+
+
+def two_calls_line(name, t):
+    """B2 beside the two library calls that give the same pair."""
+    return (f"kernel {name}: m={t['shape'][-1]} {t['ms']:.4f} ms; two "
+            f"library calls (cholesky_ex, then solve_triangular) "
+            f"{t['library_two_calls_ms']:.4f} ms")
 
 
 def check_kernels(torch, lc, captured):
@@ -504,8 +529,7 @@ def check_kernels(torch, lc, captured):
         t = chol_times(torch, name, kernel, plain, real.contiguous())
         results.append(dict(
             name=name, route="cuda",
-            source=("xivo_tpu_torch/csrc/chol_blocked.cu" if name in TWIN
-                    else "xivo_tpu_torch/csrc/lanes_chol.cu"),
+            source="xivo_tpu_torch/csrc/chol_blocked.cu",
             replaces=REPLACES[name], launches=None, max_abs_err=err,
             row_rel_err=max(rel.values()), **t))
         print(f"kernel {name}: shape {batch}x{m}x{m} max_abs_err {err:.3e} "
@@ -514,6 +538,8 @@ def check_kernels(torch, lc, captured):
               f"({t['bound_by']})", flush=True)
         if name in TWIN:
             print(twin_line(name, t), flush=True)
+        if "library_two_calls_ms" in t:
+            print(two_calls_line(name, t), flush=True)
     return results
 
 
@@ -1652,6 +1678,8 @@ def check_oos_shape(torch, name, kernel, plain, inputs, backward=False):
           f"({t['bound_by']})", flush=True)
     if name in TWIN:
         print(twin_line(name, t), flush=True)
+    if "library_two_calls_ms" in t:
+        print(two_calls_line(name, t), flush=True)
     if use > 1.0:
         raise AssertionError(f"{name} at m={m}: error above its limit "
                              f"({use:.3f} x)")

@@ -16,8 +16,8 @@ package, on the CPU.
   both;
 * the linear-algebra profile (``tools/profile_linalg.py``) runs every
   line at a tiny batch;
-* the breakdown tool's cuts (``tools/chol_breakdown.py``) still match the
-  kernel's source.
+* the breakdown tool's cuts (``tools/chol_breakdown.py``), the inversion
+  stage of B2 and B3 among them, still match the kernels' source.
 
 The hand-written kernel itself is held against the plain version on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -124,13 +124,18 @@ def test_profile_linalg_runs_every_line_on_the_cpu():
 
 
 def test_breakdown_cuts_each_step_out_of_the_kernel_source():
-    """The breakdown tool (``tools/chol_breakdown.py``) times the kernel
-    with steps cut from its source: every cut still matches the source,
-    and removes what it names and nothing else."""
+    """The breakdown tool (``tools/chol_breakdown.py``) times the kernels
+    with steps cut from their source: every cut still matches the source
+    once, and removes what it names and nothing else; the inversion stage
+    of B2 and B3 is a step of its own."""
     from xivo_tpu_torch.tools import chol_breakdown as cb
     full = cb.variant_source("full")
+    assert {"trailing", "solve", "block", "store", "load",
+            "inverse"} == set(cb.CUTS)
     for step, lines in cb.CUTS.items():
         src = cb.variant_source(step)
         assert len(full) - len(src) == sum(len(line) for line in lines)
+    assert "    invert(" in full
+    assert "    invert(" not in cb.variant_source("inverse")
     assert len(cb.variant_source("all")) == len(full) - sum(
         len(line) for lines in cb.CUTS.values() for line in lines)

@@ -135,21 +135,47 @@ def test_chol_lanes_on_a_rank_deficient_bordered_gram(cuda):
     zero_rows_stay_zero(lc.chol_lanes(G), empty)
 
 
-@pytest.mark.parametrize("m", [12, 60, 128])
+@pytest.mark.parametrize("m", [12, 16, 17, 60, 120, 128])
 def test_chol_inv_and_tri_inv_kernels_match_plain_versions(cuda, m):
-    dead = [1, m // 2]
+    """B2 and B3 (``csrc/chol_blocked.cu``: B1's factorization, then the
+    blocked inversion stage) at the panel and doubling edges: L is B1's
+    and B7's bit for bit, and both still match the plain version; B3 with
+    junk in the dead rows and columns below the diagonal, which it
+    ignores as the plain version does."""
+    dead = sorted({1, m // 2, min(15, m - 1)})
     G = psd_batch(64, m, dead, seed=m + 1)
+    n2, n3 = lc.CHOL_INV.launches, lc.TRI_INV.launches
     L, Linv = lc.chol_inv_lanes(G)
+    assert lc.CHOL_INV.launches == n2 + 1
     Lp, Linvp = lc.chol_inv_plain(G)
     close(L, Lp)
     close(Linv, Linvp, 1e-3)   # the inverse amplifies by cond(L) <= ~10
+    zero_rows_stay_zero(L, dead)
     zero_rows_stay_zero(Linv, dead)
+    L1, L7 = lc.chol_lanes(G), chol.cholesky_batched(G)
+    close(L1, Lp)
+    torch.cuda.synchronize()
+    assert torch.equal(L, L1) and torch.equal(L, L7)
     # the downdate's (L + diag sqrt R): positive or dead diagonal
     Lr = (Lp + torch.diag_embed(
         (torch.diagonal(Lp, dim1=-2, dim2=-1) > 0).float())).contiguous()
     T = lc.tri_inv_lanes(Lr)
+    assert lc.TRI_INV.launches == n3 + 1
     close(T, lc.tri_inv_plain(Lr))
     zero_rows_stay_zero(T, dead)
+    junk = Lr.clone()
+    rng = np.random.default_rng(m)
+    for d in dead:
+        junk[:, d, :d] = torch.tensor(rng.standard_normal((64, d)),
+                                      dtype=torch.float32, device="cuda")
+        junk[:, d + 1:, d] = torch.tensor(
+            rng.standard_normal((64, m - d - 1)), dtype=torch.float32,
+            device="cuda")
+    junk += torch.triu(torch.ones_like(junk), 1)
+    Tj = lc.tri_inv_lanes(junk)
+    close(Tj, lc.tri_inv_plain(junk))
+    close(Tj, T, 0.0)
+    zero_rows_stay_zero(Tj, dead)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -158,8 +184,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         lc.chol_lanes(G.double())
     with pytest.raises(ValueError):
         lc.chol_lanes(G.transpose(1, 2))
-    with pytest.raises(RuntimeError):  # two packed 300 x 300 > 227 KB
+    # B2 and B3 keep L packed by columns and L^-1 packed by rows: 374 KB
+    # at 300 rows, > 227 KB
+    with pytest.raises(RuntimeError):
         lc.chol_inv_lanes(psd_batch(1, 300, [0], seed=0))
+    with pytest.raises(RuntimeError):
+        lc.tri_inv_lanes(psd_batch(1, 300, [0], seed=0))
     with pytest.raises(RuntimeError):  # a packed 400 x 400 > 227 KB
         lc.chol_lanes(psd_batch(1, 400, [0], seed=0))
 

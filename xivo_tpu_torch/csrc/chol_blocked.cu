@@ -1,18 +1,37 @@
-// Blocked batched Cholesky for Hopper (sm_90a). One kernel replaces two
-// Pallas kernels that compute the same function under the same contract:
+// Blocked batched Cholesky, and the same factorization followed by a
+// blocked triangular inverse, for Hopper (sm_90a). Three kernels replace
+// four Pallas kernels:
 //
-//   xivo_tpu/ops/lanes_chol.py:103  _chol_lanes_kernel  (B1, the filter's
-//                                   per-frame Cholesky at 228 and 229)
-//   xivo_tpu/ops/chol_pallas.py:37  _chol_kernel        (B7, the blocked
-//                                   Cholesky of the linear-algebra profile)
+//   chol_blocked_kernel      xivo_tpu/ops/lanes_chol.py:103
+//                            _chol_lanes_kernel (B1, the filter's per-frame
+//                            Cholesky at 228 and 229) and
+//                            xivo_tpu/ops/chol_pallas.py:37 _chol_kernel
+//                            (B7), the same function under one contract
+//   chol_inv_blocked_kernel  xivo_tpu/ops/lanes_chol.py:108
+//                            _chol_inv_lanes_kernel (B2: L and L^-1)
+//   tri_inv_blocked_kernel   xivo_tpu/ops/lanes_chol.py:133
+//                            _tri_inv_lanes_kernel (B3: a triangle's
+//                            inverse)
 //
 // Contract: (B, m, m) row-major float32, one matrix per batch item, only
 // the lower triangle read. A pivot <= 1e-30 zeroes its column of L, so
 // exactly-zero rows and columns of the input come out exactly zero; the
-// strict upper triangle of L is zero. Every product is a float32 FMA (the
-// TPU kernels run at Precision.HIGHEST; no TF32 here). Any m whose packed
-// triangle fits one block's shared memory (m <= ~330); a larger m fails as
-// an invalid launch.
+// strict upper triangle of L is zero. L^-1 (B2, B3) inverts the live
+// pivots and has a zero row and column at each dead one (a diagonal of L
+// <= 1e-30 for B3), whatever B3's input holds below the diagonal there;
+// its upper triangle is zero. Every product is a float32 FMA (the TPU
+// kernels run at Precision.HIGHEST; no TF32 here). Any m whose packed
+// buffers fit one block's shared memory (B1/B7: m <= ~330; B2 and B3,
+// which add the row-packed inverse: m <= ~230); a larger m
+// fails as an invalid launch.
+//
+// B2 and B3 at 60 and 120 rows (the filter's innovation factor and the
+// OOS blocks) are bound by bytes too (~0.003 and ~0.011 ms at B = 256):
+// what sets their time is the chain. Walked a column at a time, with a
+// barrier and a serial dot product for each row of the inverse, it took
+// some 30 times the bound on the H100; here the factorization is B1's, and the inverse a
+// block-row substitution that keeps the row-by-row substitution's order
+// of sums (see the inversion stage below).
 //
 // What bounds it: at (256, 228, 228) the function reads the lower triangle
 // and writes L once (~80 MB, 0.024 ms at 3.35 TB/s) and does m^3/3 flops a
@@ -150,12 +169,15 @@ __device__ void zero_upper(float* __restrict__ dst, int m) {
 // registers, a lane per row, the column of each step passed by shuffles.
 // Lanes r >= w hold zeros, which stay zero and give dead pivots past w.
 // Writes the factored block to blk: L[k][j] at 16 j + k, then the
-// reciprocal pivots (0 for a dead pivot).
-__device__ void factor_block(const float* A, float* blk, int mp, int c0,
-                             int n0, int w) {
+// reciprocal pivots (0 for a dead pivot); with kKeep, also its lower
+// triangle back into A, where nothing else reads or writes it until the
+// factorization ends (B2's inversion reads it there).
+template <bool kKeep>
+__device__ void factor_block(float* A, float* blk, int mp, int c0, int n0,
+                             int w) {
     const int lane = threadIdx.x, r = lane & (kT - 1), h = lane / kT;
     const bool row = r < w;
-    const float* D = A + cbase(n0, mp);
+    float* D = A + cbase(n0, mp);
     const int ds = mp - n0;
     float a[kT];
 #pragma unroll
@@ -208,6 +230,11 @@ __device__ void factor_block(const float* A, float* blk, int mp, int c0,
     if (lane < kT) {
 #pragma unroll
         for (int k = 0; k < kT; ++k) blk[k * kT + r] = k <= r ? a[k] : 0.0f;
+        if (kKeep && row) {
+#pragma unroll
+            for (int k = 0; k < kT; ++k)
+                if (k <= r) D[k * ds - 4 * quad_sum(k) + n0 + r] = a[k];
+        }
     }
 }
 
@@ -321,11 +348,208 @@ __device__ void trailing_update(float* A, const unsigned short* tiles,
     }
 }
 
-// 256 threads and two CTAs an SM: up to 128 registers a thread. Per
-// panel p: all threads solve p's rows below its (already factored)
-// diagonal block; barrier; then warp 0 updates and factors the next
-// panel's block (look-ahead) while the other warps write p's columns of L
-// to device memory and apply p's trailing update; barrier.
+// The factorization, by every thread of the CTA; A, blocks and tiles in
+// shared memory (see smem_bytes). Per panel p: all threads solve p's rows
+// below its (already factored) diagonal block; barrier; then warp 0
+// updates and factors the next panel's block (look-ahead) while the other
+// warps write p's columns of L to device memory and apply p's trailing
+// update; barrier. Ends with L in A below the diagonal blocks and, with
+// kKeep, in them too.
+template <bool kKeep>
+__device__ __forceinline__ void factorize(const float* __restrict__ in,
+                                          float* __restrict__ out, float* A,
+                                          float* blocks,
+                                          unsigned short* tiles, int m,
+                                          int mp) {
+    load_rows(in, A, m, mp, 0, min(kT, m));
+    cp_async_commit();
+    load_rows(in, A, m, mp, kT, m);
+    cp_async_commit();
+    make_tiles(tiles, mp >> 3);
+    zero_upper(out, m);
+    cp_async_wait<1>();                 // panel 0's columns are in
+    __syncthreads();
+    if (threadIdx.x < 32)
+        factor_block<kKeep>(A, blocks, mp, -1, 0, min(kT, m));
+    __syncthreads();
+    for (int c0 = 0, p = 0; c0 < m; c0 += kT, ++p) {
+        const int w = min(kT, m - c0), n0 = c0 + kT;
+        const float* blk = blocks + (p & 1) * kBlock;
+        if (n0 < m) solve_below(A, blk, m, mp, c0);
+        if (p == 0) cp_async_wait<0>();
+        __syncthreads();
+        if (threadIdx.x < 32) {
+            if (n0 < m)
+                factor_block<kKeep>(A, blocks + ((p + 1) & 1) * kBlock, mp,
+                                    c0, n0, min(kT, m - n0));
+        } else {
+            store_panel(A, blk, out, m, mp, c0, w);
+            if (n0 < m) trailing_update(A, tiles, m, mp, c0);
+        }
+        __syncthreads();
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The inversion stage (B2 after the factorization, B3 after a load):
+// X = L^-1 from the packed L in A, into X packed BY ROWS: row i holds
+// columns 0 .. 4 (i / 4) + 3, so every row starts on 16 bytes (the
+// entries past i are never read). First the reciprocal pivots, 1 / L[i][i]
+// (0 for a dead pivot <= 1e-30), into rdv; then block-row forward
+// substitution, 16 rows a step and one barrier a step (4 at 60 rows, 8 at
+// 120): at step I every column c <= 16 I + 15 of the rows 16 I .. 16 I +
+// 15 at once, two lanes a column:
+//   - the sums over the final rows above, sum over c <= k < 16 I of
+//     L[i][k] X[k][c], eight rows a lane, the lanes of a warp in step
+//     over k: for each k two float4 of L's column k (the same for every
+//     column: a broadcast) and one entry of X's row k (consecutive
+//     columns on consecutive lane pairs), eight FMAs;
+//   - the two lanes swap their sums by shuffles, and each then runs the
+//     16 rows in turn in registers, both alike (SIMT makes the copy
+//     free): X[i][c] = (e_c - sum_i) * rdv[i], then sum_i' += L[i'][i]
+//     X[i][c] for the later rows i' of the block; lane q stores rows 8q ..
+//     8q + 7.
+// (Two lanes a column timed best on the H100: with one the sums run
+// longer, with four the copies of the 16-row chain cost more warps.)
+// Every entry's sum thus runs over k = c, c + 1, ... in order, one FMA a
+// term, and the last step is (e_c - sum) * (1 / L[i][i]): forward
+// substitution row by row, term for term, so that a given L gives the
+// same X bit for bit as a kernel that finishes one row of X a step; only
+// the chain is shorter (16 steps in registers and a barrier a block row,
+// not a barrier and a serial dot product a row). A
+// dead pivot gives x = 0, which adds exactly nothing to later sums, so
+// whatever L holds below the diagonal in a dead row or column is ignored
+// and that row and column of X come out exactly zero.
+// ---------------------------------------------------------------------------
+
+// Offset of row i of the row-packed X; row_off(mp) is the whole size.
+__host__ __device__ __forceinline__ int row_off(int i) {
+    const int g = i >> 2, r = i & 3;
+    return 4 * (g + 1) * (2 * g + r);
+}
+
+__device__ __forceinline__ void fma4(float* acc, float4 l, float x) {
+    acc[0] = fmaf(l.x, x, acc[0]);
+    acc[1] = fmaf(l.y, x, acc[1]);
+    acc[2] = fmaf(l.z, x, acc[2]);
+    acc[3] = fmaf(l.w, x, acc[3]);
+}
+
+// Floats of rdv: a pivot for every row of the last block row.
+__host__ __device__ __forceinline__ int rdv_size(int m) {
+    return (m + kT - 1) & ~(kT - 1);
+}
+
+// Lanes a column in the substitution, and the rows of the block row each
+// keeps a sum for.
+constexpr int kLanes = 2;
+constexpr int kRows = kT / kLanes;
+
+// X = L^-1 (see above), ending with a barrier; L final in A, read after a
+// barrier. Lanes kLanes q' .. kLanes q' + kLanes - 1 take column q' of a
+// pass; a lane past the pass's columns takes column i0, whose sums are
+// empty, and stores nothing, but runs every shuffle.
+__device__ void invert(const float* A, float* X, float* rdv, int m,
+                       int mp) {
+    for (int i = threadIdx.x; i < rdv_size(m); i += blockDim.x) {
+        const float d = i < m ? A[cbase(i, mp) + i] : 0.0f;
+        rdv[i] = d > kFloor ? 1.0f / d : 0.0f;
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, q = lane % kLanes;
+    const int group = lane - q;
+    for (int i0 = 0; i0 < m; i0 += kT) {
+        const int n = kLanes * min(i0 + kT, m), r0 = i0 + kRows * q;
+        const float* D = A + cbase(i0, mp) + i0;   // L[i0][i0], its column
+        const int ds = mp - i0;
+        float rd[kT];
+#pragma unroll
+        for (int g = 0; g < kT; g += 4) {
+            const float4 v = ld4(rdv + i0 + g);
+            rd[g] = v.x;
+            rd[g + 1] = v.y;
+            rd[g + 2] = v.z;
+            rd[g + 3] = v.w;
+        }
+        for (int base = 0; base < n; base += blockDim.x) {
+            const bool ok = base + threadIdx.x < n;
+            const int c = ok ? (base + threadIdx.x) / kLanes : i0;
+            // the sums over k < i0, kRows rows a lane: the warp walks k
+            // from its first column cw (a multiple of 8), four a step
+            // (strides mp - k and k + 4), so that its lanes read one
+            // float4 run of L's column k and consecutive entries of X's
+            // row k; a lane adds exact zeros while k < c, which leave its
+            // sum +0 until its first term, as a walk from k = c would
+            float own[kRows] = {};
+            const int cw = (base + (threadIdx.x & ~31)) / kLanes;
+            if (r0 < m && cw < i0) {
+                const float* lk = A + cbase(cw, mp) + r0;
+                const float* xk = X + row_off(cw) + c;
+                for (int k = cw; k < i0; k += 4) {
+                    const int ls = mp - k, xs = k + 4;
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        const float x = k + u >= c ? xk[u * xs] : 0.0f;
+#pragma unroll
+                        for (int j = 0; j < kRows; j += 4)
+                            if (r0 + j < m)
+                                fma4(own + j, ld4(lk + u * ls + j), x);
+                    }
+                    lk += 4 * ls - 4;
+                    xk += 4 * xs;
+                }
+            }
+            float acc[kT];
+#pragma unroll
+            for (int r = 0; r < kT; ++r)
+                acc[r] = kLanes == 1 ? own[r]
+                                     : __shfl_sync(kFull, own[r % kRows],
+                                                   group | (r / kRows));
+#pragma unroll
+            for (int r = 0; r < kT; ++r) {
+                const int i = i0 + r;
+                const float x =
+                    i >= c ? ((i == c ? 1.0f : 0.0f) - acc[r]) * rd[r] : 0.0f;
+                if (i >= m) break;             // and so are the rows after
+                if (ok && q == r / kRows && i >= c) X[row_off(i) + c] = x;
+                const float* col = D + r * ds - 4 * quad_sum(r);
+#pragma unroll
+                for (int g = (r + 1) & ~3; g < kT; g += 4) {
+                    if (i0 + g < m) {
+                        const float4 l = ld4(col + g);
+                        if (g > r) acc[g] = fmaf(l.x, x, acc[g]);
+                        if (g + 1 > r) acc[g + 1] = fmaf(l.y, x, acc[g + 1]);
+                        if (g + 2 > r) acc[g + 2] = fmaf(l.z, x, acc[g + 2]);
+                        acc[g + 3] = fmaf(l.w, x, acc[g + 3]);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// X to device memory, row-major with a zero upper triangle: a warp per
+// row, its lanes along the row.
+__device__ void store_rows(const float* X, float* __restrict__ dst, int m) {
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int i = threadIdx.x >> 5; i < m; i += nw) {
+        const float* xr = X + row_off(i);
+        for (int j = lane; j < m; j += 32)
+            dst[(size_t)i * m + j] = j <= i ? xr[j] : 0.0f;
+    }
+}
+
+// B2's and B3's common end: the inverse, then its store (rdv after X).
+__device__ __forceinline__ void inverse_stage(const float* A, float* X,
+                                              float* __restrict__ dst,
+                                              int m, int mp) {
+    invert(A, X, X + row_off(mp), m, mp);
+    store_rows(X, dst, m);
+}
+
+
+// 256 threads and two CTAs an SM: up to 128 registers a thread.
 __global__ void __launch_bounds__(kThreads, 2)
 chol_blocked_kernel(const float* __restrict__ in, float* __restrict__ out,
                     int m) {
@@ -336,50 +560,87 @@ chol_blocked_kernel(const float* __restrict__ in, float* __restrict__ out,
     unsigned short* tiles =
         reinterpret_cast<unsigned short*>(blocks + 2 * kBlock);
     const size_t off = (size_t)blockIdx.x * m * m;
-    in += off;
-    out += off;
-    load_rows(in, A, m, mp, 0, min(kT, m));
+    factorize<false>(in + off, out + off, A, blocks, tiles, m, mp);
+}
+
+// B2: the factorization as above, keeping the diagonal blocks in A, then
+// the inversion stage. Shared memory: A | blocks | X | rdv | tiles.
+__global__ void __launch_bounds__(kThreads, 2)
+chol_inv_blocked_kernel(const float* __restrict__ in,
+                        float* __restrict__ out_l,
+                        float* __restrict__ out_inv, int m) {
+    extern __shared__ __align__(16) float smem[];
+    const int mp = padded(m);
+    float* A = smem;
+    float* blocks = A + col_off(m, mp);
+    float* X = blocks + 2 * kBlock;
+    unsigned short* tiles =
+        reinterpret_cast<unsigned short*>(X + row_off(mp) + rdv_size(m));
+    const size_t off = (size_t)blockIdx.x * m * m;
+    factorize<true>(in + off, out_l + off, A, blocks, tiles, m, mp);
+    inverse_stage(A, X, out_inv + off, m, mp);
+}
+
+// B3: L's lower triangle loaded into the same packed layout, then the
+// inversion stage. Shared memory: A | X | rdv.
+__global__ void __launch_bounds__(kThreads, 2)
+tri_inv_blocked_kernel(const float* __restrict__ in, float* __restrict__ out,
+                       int m) {
+    extern __shared__ __align__(16) float smem[];
+    const int mp = padded(m);
+    float* A = smem;
+    float* X = A + col_off(m, mp);
+    const size_t off = (size_t)blockIdx.x * m * m;
+    load_rows(in + off, A, m, mp, 0, m);
     cp_async_commit();
-    load_rows(in, A, m, mp, kT, m);
-    cp_async_commit();
-    make_tiles(tiles, mp >> 3);
-    zero_upper(out, m);
-    cp_async_wait<1>();                 // panel 0's columns are in
+    cp_async_wait<0>();
     __syncthreads();
-    if (threadIdx.x < 32) factor_block(A, blocks, mp, -1, 0, min(kT, m));
-    __syncthreads();
-    for (int c0 = 0, p = 0; c0 < m; c0 += kT, ++p) {
-        const int w = min(kT, m - c0), n0 = c0 + kT;
-        const float* blk = blocks + (p & 1) * kBlock;
-        if (n0 < m) solve_below(A, blk, m, mp, c0);
-        if (p == 0) cp_async_wait<0>();
-        __syncthreads();
-        if (threadIdx.x < 32) {
-            if (n0 < m)
-                factor_block(A, blocks + ((p + 1) & 1) * kBlock, mp, c0, n0,
-                             min(kT, m - n0));
-        } else {
-            store_panel(A, blk, out, m, mp, c0, w);
-            if (n0 < m) trailing_update(A, tiles, m, mp, c0);
-        }
-        __syncthreads();
-    }
+    inverse_stage(A, X, out + off, m, mp);
+}
+
+size_t round16(size_t bytes) { return (bytes + 15) & ~(size_t)15; }
+
+size_t tiles_bytes(int mp) {
+    const int nt = mp >> 3;
+    return (size_t)nt * (nt + 1) / 2 * sizeof(unsigned short);
 }
 
 size_t smem_bytes(int m) {
-    const int mp = padded(m), nt = mp >> 3;
-    const size_t bytes =
-        ((size_t)col_off(m, mp) + 2 * kBlock) * sizeof(float) +
-        (size_t)nt * (nt + 1) / 2 * sizeof(unsigned short);
-    return (bytes + 15) & ~(size_t)15;
+    const int mp = padded(m);
+    return round16(((size_t)col_off(m, mp) + 2 * kBlock) * sizeof(float) +
+                   tiles_bytes(mp));
+}
+
+size_t smem_bytes_chol_inv(int m) {
+    const int mp = padded(m);
+    return round16(((size_t)col_off(m, mp) + 2 * kBlock + row_off(mp) +
+                    rdv_size(m)) * sizeof(float) + tiles_bytes(mp));
+}
+
+size_t smem_bytes_tri_inv(int m) {
+    const int mp = padded(m);
+    return ((size_t)col_off(m, mp) + row_off(mp) + rdv_size(m)) *
+           sizeof(float);
+}
+
+// Let a kernel use up to `smem` bytes of dynamic shared memory, with the
+// largest shared-memory carve-out.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. xivo_chol_blocked_init runs once per
-// device, before the first launch there: it lets the kernel use all the
-// shared memory a block may have on that device. xivo_chol_blocked_f32
-// launches on the given stream, does not synchronize, and returns
+// device, before the first launch there: it lets every kernel use all the
+// shared memory a block may have on that device. The launch entries
+// launch on the given stream, do not synchronize, and return
 // cudaGetLastError() (0 = launched); a matrix too large for one block's
 // shared memory fails there, as an invalid launch.
 extern "C" {
@@ -390,15 +651,9 @@ int xivo_chol_blocked_init(void) {
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(
             &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            chol_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            chol_blocked_kernel,
-            cudaFuncAttributePreferredSharedMemoryCarveout,
-            (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = prepare(chol_blocked_kernel, smem);
+    if (err == cudaSuccess) err = prepare(chol_inv_blocked_kernel, smem);
+    if (err == cudaSuccess) err = prepare(tri_inv_blocked_kernel, smem);
     return (int)err;
 }
 
@@ -406,6 +661,20 @@ int xivo_chol_blocked_f32(const float* in, float* out, int batch, int m,
                           void* stream) {
     chol_blocked_kernel<<<batch, kThreads, smem_bytes(m),
                           (cudaStream_t)stream>>>(in, out, m);
+    return (int)cudaGetLastError();
+}
+
+int xivo_chol_inv_f32(const float* in, float* out_l, float* out_inv,
+                      int batch, int m, void* stream) {
+    chol_inv_blocked_kernel<<<batch, kThreads, smem_bytes_chol_inv(m),
+                              (cudaStream_t)stream>>>(in, out_l, out_inv, m);
+    return (int)cudaGetLastError();
+}
+
+int xivo_tri_inv_f32(const float* in, float* out, int batch, int m,
+                     void* stream) {
+    tri_inv_blocked_kernel<<<batch, kThreads, smem_bytes_tri_inv(m),
+                             (cudaStream_t)stream>>>(in, out, m);
     return (int)cudaGetLastError();
 }
 

@@ -26,21 +26,14 @@ the kernel and the plain version alike.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
-from .lanes_chol import _check_input, chol_plain
+from .lanes_chol import LIB, _check_input, chol_plain
 
 # the reference's CPU path (see the module docstring)
 cholesky_plain = chol_plain
 
-
-_p, _i = ctypes.c_void_p, ctypes.c_int
-_LIB = _build.Library(
-    "chol_blocked", {"xivo_chol_blocked_f32": [_p, _p, _i, _i, _p]},
-    init="xivo_chol_blocked_init")
 
 CHOL_BLOCKED = _build.Kernel("chol_blocked")
 KERNELS = (CHOL_BLOCKED,)
@@ -63,7 +56,7 @@ def launch(G: torch.Tensor, counter: _build.Kernel) -> torch.Tensor:
         raise ValueError(f"expected a non-empty batch, got {tuple(G.shape)}")
     out = torch.empty_like(G)
     with torch.cuda.device(G.device):
-        err = _LIB.get(G.device).xivo_chol_blocked_f32(
+        err = LIB.get(G.device).xivo_chol_blocked_f32(
             G.data_ptr(), out.data_ptr(), B, D, _build.stream(G))
     counter.launched(err)
     return out

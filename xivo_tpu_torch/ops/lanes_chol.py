@@ -1,15 +1,17 @@
 """Batched Cholesky / Cholesky+inverse / triangular inverse (port of
 ``xivo_tpu/ops/lanes_chol.py``).
 
-Three wrappers, one hand-written CUDA kernel each:
+Three wrappers, each a hand-written CUDA kernel of
+``csrc/chol_blocked.cu``:
 
 * ``chol_lanes(G)``      -> L        replaces ``_chol_lanes_kernel``
-  (B1): the blocked kernel of ``csrc/chol_blocked.cu``, which also
-  serves ``ops/chol.py`` (B7), the same function under the same contract
+  (B1): ``chol_blocked_kernel``, which also serves ``ops/chol.py`` (B7),
+  the same function under the same contract
 * ``chol_inv_lanes(G)``  -> (L, L^-1) replaces ``_chol_inv_lanes_kernel``
-  (``csrc/lanes_chol.cu``)
+  (B2): ``chol_inv_blocked_kernel``, B1's factorization followed by the
+  blocked inversion stage
 * ``tri_inv_lanes(L)``   -> L^-1     replaces ``_tri_inv_lanes_kernel``
-  (``csrc/lanes_chol.cu``)
+  (B3): ``tri_inv_blocked_kernel``, a load followed by the same stage
 
 All take (B, m, m) and keep the reference's numerical contract: a pivot
 at or below 1e-30 zeroes its column of L (its row of L^-1), so
@@ -69,11 +71,13 @@ def chol_inv_plain(G):
 # ---------------------------------------------------------------------------
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-_LIB = _build.Library(
-    "lanes_chol",
-    {"xivo_chol_inv_f32": [_p, _p, _p, _i, _i, _p],
+# csrc/chol_blocked.cu, also ops/chol.py's (B7)
+LIB = _build.Library(
+    "chol_blocked",
+    {"xivo_chol_blocked_f32": [_p, _p, _i, _i, _p],
+     "xivo_chol_inv_f32": [_p, _p, _p, _i, _i, _p],
      "xivo_tri_inv_f32": [_p, _p, _i, _i, _p]},
-    init="xivo_lanes_chol_init")   # shared-memory limits, once per device
+    init="xivo_chol_blocked_init")  # shared-memory limits, once per device
 
 CHOL = _build.Kernel("chol_lanes")
 CHOL_INV = _build.Kernel("chol_inv_lanes")
@@ -101,7 +105,8 @@ def chol_lanes(G: torch.Tensor) -> torch.Tensor:
 
 
 def chol_inv_lanes(G: torch.Tensor):
-    """(L, L^-1) of (B, m, m) PSD matrices in one fused pass."""
+    """(L, L^-1) of (B, m, m) PSD matrices in one launch: L is
+    ``chol_lanes``'s, bit for bit."""
     if G.device.type == "cpu":
         return chol_inv_plain(G)
     B, m, _ = G.shape
@@ -109,7 +114,7 @@ def chol_inv_lanes(G: torch.Tensor):
     L = torch.empty_like(G)
     Linv = torch.empty_like(G)
     with torch.cuda.device(G.device):
-        err = _LIB.get(G.device).xivo_chol_inv_f32(
+        err = LIB.get(G.device).xivo_chol_inv_f32(
             G.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, m,
             _build.stream(G))
     CHOL_INV.launched(err)
@@ -125,7 +130,7 @@ def tri_inv_lanes(L: torch.Tensor) -> torch.Tensor:
     _check_input(L)
     out = torch.empty_like(L)
     with torch.cuda.device(L.device):
-        err = _LIB.get(L.device).xivo_tri_inv_f32(
+        err = LIB.get(L.device).xivo_tri_inv_f32(
             L.data_ptr(), out.data_ptr(), B, m, _build.stream(L))
     TRI_INV.launched(err)
     return out
