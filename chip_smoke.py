@@ -55,12 +55,17 @@ image path (slice 2):
    of its calls, and ``_keyframe_insert`` includes the second);
 mapped path (slice 3):
 10. hold the Hamming nearest-neighbour kernel (B6) against its plain
-   version, exactly, on the queries and map tables of the three searches
-   of frame 130 of the mapped main path (taken in a run of its own, before
-   phase 12) and on random
-   descriptors with planted copies, duplicate map rows (ties), an invalid
-   tail and an all-invalid sequence at M = 20000; time kernel and plain
-   version at both query widths (256 retiring rows, 30 in-state slots);
+   version, exactly, on the queries, map tables and query-row masks of the
+   three searches of frame 130 of the mapped main path (taken in a run of
+   its own, before phase 12; the two retirement searches also without
+   their mask) and on random descriptors with planted copies, duplicate
+   map rows (ties), an invalid tail and an all-invalid sequence at
+   M = 20000, without a mask, with a random one and with every row masked
+   (masked rows at (10000, 0)); print how many rows each recorded call
+   left unmasked; time kernel and plain version beside the bound on the
+   retirement search with its mask and without (256 rows), the closure
+   search (30 in-state slots) and random descriptors with every entry
+   valid (F = 256, bound by the population counts);
 11. check the CUDA mapped path against the port's CPU mapped path at full
    width as configured (B = 2, 60 frames, closures eligible after 20
    frames, 2048-entry maps, fusion on retirement on, the same RANSAC draws
@@ -120,6 +125,7 @@ last lines are the kernels' JSON line, the card line, and
 exits 1.
 """
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -178,7 +184,8 @@ IMG_CMP_FRAMES, IMG_CMP_OPEN_FRAMES = 10, 20
 PROFILE_FRAMES = (30, 40)   # the window that phase 9 profiles
 
 DEV = "cuda"            # the card every phase runs on
-# the kernels of csrc/*.cu, as the profiler names them
+# the kernels of csrc/*.cu, as the profiler names them (a template's
+# name is followed by its arguments, <...>)
 OWN_KERNELS = ("chol_blocked_kernel", "chol_inv_blocked_kernel",
                "tri_inv_blocked_kernel",
                "templates_kernel", "gn_kernel", "hamming_nn_kernel")
@@ -224,10 +231,17 @@ PROFILE_ITERS = 10
 ACC_CMP_FRAMES, ACC_COMPRESS_FRAMES, ACC_CAPTURE_FRAMES = 40, 20, 20
 ACC_PATH_TOL = 1e-3
 ACC_ATE_FACTOR, ACC_ATE_FLOOR = 1.25, 0.015
-# B6's bound: population counts at 16 results a clock per SM (the CUDA
-# C++ Programming Guide's arithmetic-instruction throughput table,
-# compute capability 9.0), on 132 SMs at the card's maximum SM clock
-POPC_PER_CLK_SM, N_SMS = 16, 132
+# B6's bound by operations: the least work a (query, entry) pair's
+# distance needs, whatever the kernel does. 8 XORs; carry-save adders
+# (a sum and a carry, one 3-input logic operation each) over seven of the
+# 8 words, and one over the three carries, leave words of weight 1, 1, 2
+# and 4: 16 logic operations at 64 results a clock per SM and 4
+# population counts at 16 (the CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table, compute capability 9.0), 0.25
+# clock a pair either way; the weighting adds and the running minimum are
+# not counted. On 132 SMs at the card's maximum SM clock
+LOGIC_PER_PAIR, LOGIC_PER_CLK_SM = 16, 64
+POPC_PER_PAIR, POPC_PER_CLK_SM, N_SMS = 4, 16, 132
 
 
 def build_kernels():
@@ -311,8 +325,9 @@ def cuda_ms(torch, fn, reps=20):
 
 class Recorder:
     """Replace module functions by wrappers that keep a copy of their
-    tensor arguments, while the `with` block runs. The LK kernels' tests
-    use it too."""
+    tensor arguments, while the `with` block runs: each call's arguments
+    in the function's order, keyword arguments in their places (B6's
+    ``qmask``). The LK kernels' tests use it too."""
 
     def __init__(self, torch, module, names):
         self.torch, self.module, self.names = torch, module, names
@@ -325,11 +340,13 @@ class Recorder:
         return self.seen
 
     def _wrap(self, name):
-        def fn(*args):
+        sig = inspect.signature(self.orig[name])
+
+        def fn(*args, **kw):
             self.seen[name].append(tuple(
                 a.detach().clone() if self.torch.is_tensor(a) else a
-                for a in args))
-            return self.orig[name](*args)
+                for a in sig.bind(*args, **kw).args))
+            return self.orig[name](*args, **kw)
         return fn
 
     def __exit__(self, *exc):
@@ -987,7 +1004,8 @@ def where_time_goes(torch, label, run, stages, n_frames):
               f"step", flush=True)
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
         own = [kv for kv in top
-               if any(f"::{k}(" in kv[0] for k in OWN_KERNELS)]
+               if any(f"::{k}{c}" in kv[0] for k in OWN_KERNELS
+                      for c in "(<")]
         for name, (t, c) in top[:12] + [kv for kv in own
                                          if kv not in top[:12]]:
             print(f"{label} time:   {t:8.4f} ms a step, {c:4d} launches: "
@@ -1094,19 +1112,28 @@ def max_sm_clock_mhz():
     return float(out)
 
 
-def hamming_bound(torch, q, desc, valid, clock_mhz):
-    """What the function must move and do on this input: the queries and
-    the mask read once, the words of the valid entries only (an invalid
-    entry's words decide nothing), dist and idx written once (int64 words,
-    bool mask); population counts for the valid entries only."""
+def hamming_bound(torch, q, desc, valid, clock_mhz, qmask=None):
+    """What the function must move and do on this input: the unmasked
+    queries, the mask and the query-row mask read once, the words of the
+    valid entries of every sequence with an unmasked query only (an
+    invalid entry's words decide nothing), dist and idx written once for
+    every row (int64 words, bool masks); a distance for (unmasked query,
+    valid entry) pairs only. Returns (bound ms, what bounds it, bytes,
+    pairs)."""
     B, F, W = q.shape
-    n_valid = int(valid.sum())
-    n_bytes = (q.numel() + n_valid * W) * 8 + valid.numel() + 2 * B * F * 8
-    n_popc = W * F * n_valid
+    n_q = (torch.full((B,), F, device=q.device) if qmask is None
+           else qmask.sum(1))
+    n_v = valid.sum(1)
+    n_entries = int(torch.where(n_q > 0, n_v, 0).sum())
+    n_bytes = (int(n_q.sum()) + n_entries) * W * 8 + valid.numel() \
+        + (0 if qmask is None else qmask.numel()) + 2 * B * F * 8
+    n_pairs = int((n_q * n_v).sum())
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_popc / (POPC_PER_CLK_SM * N_SMS * clock_mhz * 1e6) * 1e3
+    clk_per_pair = max(LOGIC_PER_PAIR / LOGIC_PER_CLK_SM,
+                       POPC_PER_PAIR / POPC_PER_CLK_SM)
+    t_ops = n_pairs * clk_per_pair / (N_SMS * clock_mhz * 1e6) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", n_bytes, n_popc)
+            "operations", n_bytes, n_pairs)
 
 
 def random_hamming_inputs(torch, B, M, F, seed):
@@ -1131,21 +1158,79 @@ def random_hamming_inputs(torch, B, M, F, seed):
     return q.contiguous(), desc.contiguous(), valid.contiguous()
 
 
+def hamming_cases(torch, captured):
+    """Phase 10's inputs, (label, (q, desc, valid, qmask or None)): the
+    recorded calls as the path made them and, where it passed a query-row
+    mask, without it; random descriptors at M = 20000 (F = 256 and 30)
+    without a mask, with a random one and with every row masked."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(1)
+    cases = []
+    for k, args in enumerate(captured):
+        q, d, v, qm = tuple(args) + (None,) * (4 - len(args))
+        cases.append((f"recorded {k}", (q, d, v, qm)))
+        if qm is not None:
+            cases.append((f"recorded {k} unmasked", (q, d, v, None)))
+    for F in (256, 30):
+        q, d, v = random_hamming_inputs(torch, MAP_B, 20000, F, seed=F)
+        shape = (MAP_B, F)
+        cases += [
+            ("random", (q, d, v, None)),
+            ("random masked", (q, d, v, torch.rand(
+                shape, generator=g, device=DEV) < 0.3)),
+            ("random all masked", (q, d, v, torch.zeros(
+                shape, dtype=torch.bool, device=DEV)))]
+    return cases
+
+
+def hamming_timed(torch, hm, label, args, clock):
+    """Kernel and plain version timed on one input, beside its bound."""
+    q, d, v, qm = args
+    ms = cuda_ms(torch, lambda: hm.hamming_nn(q, d, v, qm))
+    plain_ms = cuda_ms(torch, lambda: hm.hamming_nn_plain(q, d, v, qm),
+                       reps=3)
+    bound_ms, bound_by, n_bytes, n_pairs = hamming_bound(torch, q, d, v,
+                                                         clock, qm)
+    B, F = q.shape[:2]
+    rows = B * F if qm is None else int(qm.sum())
+    print(f"kernel hamming_nn ({label}): B={B} F={F} M={d.shape[1]} "
+          f"({int(v.sum())} valid, {rows} unmasked rows) ms {ms:.4f} "
+          f"plain_ms {plain_ms:.4f} library_ms None bound_ms "
+          f"{bound_ms:.5f} ({bound_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_pairs:.3e} pairs at {clock:.0f} MHz)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=[B, F, d.shape[1]],
+                unmasked_rows=rows)
+
+
 def check_hamming(torch, hm, captured):
-    """Phase 10: B6 against its plain version, exactly; times."""
+    """Phase 10: B6 against its plain version, exactly, with and without
+    the query-row mask; times beside bounds."""
     clock = max_sm_clock_mhz()
-    real = captured
-    rnd = [random_hamming_inputs(torch, MAP_B, 20000, F, seed=F)
-           for F in (256, 30)]
+    for k, args in enumerate(captured):
+        if len(args) > 3 and args[3] is not None:
+            per = args[3].sum(1)
+            print(f"kernel hamming_nn: recorded call {k} (F="
+                  f"{args[0].shape[1]}) leaves {int(per.sum())} rows "
+                  f"unmasked, {int(per.min())}-{int(per.max())} a "
+                  f"sequence", flush=True)
+        else:
+            print(f"kernel hamming_nn: recorded call {k} (F="
+                  f"{args[0].shape[1]}) has no query-row mask", flush=True)
+    cases = hamming_cases(torch, captured)
     n_q = n_diff = err = 0
-    for kind, (q, d, v) in [("real", a) for a in real] + [
-            ("random", a) for a in rnd]:
-        gd, gi = hm.hamming_nn(q, d, v)
-        pd, pi = hm.hamming_nn_plain(q, d, v)
+    for kind, (q, d, v, qm) in cases:
+        gd, gi = hm.hamming_nn(q, d, v, qm)
+        pd, pi = hm.hamming_nn_plain(q, d, v, qm)
         torch.cuda.synchronize()
         n_q += gd.numel()
         n_diff += int(((gd != pd) | (gi != pi)).sum())
         err = max(err, int((gd - pd).abs().max()), int((gi - pi).abs().max()))
+        on = torch.ones_like(gd, dtype=torch.bool) if qm is None else qm
+        if not (bool((gd[~on] == hm.NO_MATCH).all())
+                and bool((gi[~on] == 0).all())):
+            raise AssertionError(f"hamming_nn ({kind}): a masked row is "
+                                 f"not (10000, 0)")
         if kind == "random":
             h = q.shape[1] // 2
             want = torch.arange(5000, 5000 + h, device=DEV)
@@ -1155,39 +1240,31 @@ def check_hamming(torch, hm, captured):
                     and bool((gi[1] == 0).all())):
                 raise AssertionError("hamming_nn: planted copies, ties or "
                                      "the all-invalid sequence wrong")
-    print(f"kernel hamming_nn: {n_q} queries over {len(real)} real and "
-          f"{len(rnd)} random inputs, {n_diff} differ from the plain "
-          f"version (required: 0), largest |difference| {err}", flush=True)
+    print(f"kernel hamming_nn: {n_q} query rows over {len(cases)} inputs "
+          f"(recorded and random, with and without the query-row mask), "
+          f"{n_diff} differ from the plain version (required: 0), largest "
+          f"|difference| {err}", flush=True)
     if n_diff:
         raise AssertionError("hamming_nn disagrees with its plain version")
-    out = {}
-    # the retirement search (the 256-row table) and the closure search
-    # (the 30 in-state slots)
-    for label, args in (("wide", real[0]), ("narrow", real[-1])):
-        ms = cuda_ms(torch, lambda: hm.hamming_nn(*args))
-        plain_ms = cuda_ms(torch, lambda: hm.hamming_nn_plain(*args), reps=3)
-        bound_ms, bound_by, n_bytes, n_popc = hamming_bound(torch, *args,
-                                                            clock)
-        B, F = args[0].shape[:2]
-        print(f"kernel hamming_nn: B={B} F={F} M={args[1].shape[1]} "
-              f"({int(args[2].sum())} valid) ms {ms:.4f} plain_ms "
-              f"{plain_ms:.4f} library_ms None bound_ms {bound_ms:.5f} "
-              f"({bound_by}: {n_bytes / 1e6:.1f} MB, {n_popc:.3e} popc at "
-              f"{clock:.0f} MHz)", flush=True)
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, shape=[B, F, args[1].shape[1]])
-    wide, narrow = out["wide"], out["narrow"]
-    return dict(
+    # the retirement search (the 256-row table) with its mask and without,
+    # the closure search (the 30 in-state slots), and every entry valid
+    real = [tuple(a) + (None,) * (4 - len(a)) for a in captured]
+    q, d, v, _ = next(a for k, a in cases
+                      if k == "random" and a[0].shape[1] == 256)
+    out = {label: hamming_timed(torch, hm, label, args, clock)
+           for label, args in (
+               ("masked", real[0]), ("wide", real[0][:3] + (None,)),
+               ("narrow", real[-1]),
+               ("random", (q, d, torch.ones_like(v), None)))}
+    entry = dict(
         name="hamming_nn", route="cuda",
         source="xivo_tpu_torch/csrc/hamming.cu",
         replaces=REPLACES["hamming_nn"], launches=None, max_abs_err=err,
-        differ=n_diff, n_queries=n_q,
-        ms=wide["ms"], plain_ms=wide["plain_ms"],
-        bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
-        library_ms=None, shape=wide["shape"], ms_narrow=narrow["ms"],
-        plain_ms_narrow=narrow["plain_ms"],
-        bound_ms_narrow=narrow["bound_ms"],
-        bound_by_narrow=narrow["bound_by"], shape_narrow=narrow["shape"])
+        differ=n_diff, n_queries=n_q, library_ms=None)
+    entry.update(out.pop("wide"))
+    for label, t in out.items():
+        entry.update({f"{k}_{label}": x for k, x in t.items()})
+    return entry
 
 
 def compare_retire(torch, cfg, s, ms, dtype=None):

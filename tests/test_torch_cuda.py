@@ -29,8 +29,11 @@ may stop one iteration earlier or later), and within ``chip_smoke``'s
 ``GN_UNCONV_TOL`` (0.1 px) on the tracks that are unconverged in both.
 Hamming kernel: exactly equal distances and indices (integer work), with
 ties, invalid entries, an all-invalid sequence and a sparse map (as a
-live map is: a few hundred valid entries of 20000); and a short mapped
-run at full width under the sync debug mode, with three launches a frame.
+live map is: a few hundred valid entries of 20000), without a query-row
+mask and with one (random, all rows masked, only the planted copies
+unmasked), masked rows at (10000, 0); one call is one CUDA kernel (the
+profiler's count); and a short mapped run at full width under the sync
+debug mode, with three launches a frame.
 The fusion of ``retire_features`` on the card against the CPU, from the
 same state and map: tables equal, positions (m) and covariances (of
 their largest entry) within ``chip_smoke``'s ``MAP_FUSE_TOL32`` in
@@ -346,10 +349,30 @@ def test_lk_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 
+def query_mask(kind, B, F, g):
+    """A (B, F) query-row mask, or None: "random" keeps about a third of
+    the rows, "planted" only the planted copies (rows :F // 2)."""
+    if kind == "none":
+        return None
+    qm = torch.zeros((B, F), dtype=torch.bool, device="cuda")
+    if kind == "random":
+        qm = torch.rand((B, F), generator=g, device="cuda") < 0.3
+    elif kind == "planted":
+        qm[:, :F // 2] = True
+    return qm
+
+
+@pytest.mark.parametrize("qmask", ["none", "random", "all_false",
+                                   "planted"])
 @pytest.mark.parametrize("B,M,F,share", [
     (8, 20000, 256, 1.0), (8, 20000, 30, 1.0), (3, 20011, 300, 1.0),
-    (8, 20000, 256, 0.005), (8, 20000, 30, 0.005)])
-def test_hamming_kernel_matches_plain_version(cuda, B, M, F, share):
+    (8, 20000, 256, 0.005), (8, 20000, 30, 0.005), (2, 40000, 256, 0.5),
+    (600, 20000, 300, 0.005)])
+def test_hamming_kernel_matches_plain_version(cuda, B, M, F, share, qmask):
+    """At B = 2, 3 and 8 the rows of a sequence are split over several
+    clusters of 8 CTAs, and M = 40000 takes two rounds of the mask (a
+    round is 8 x 4096 entries); B = 600 takes one cluster a sequence, so
+    its 300 rows take two passes."""
     q, d, v = random_hamming_inputs(torch, B, M, F, seed=F + M)
     # keep a share of the entries valid, and the planted rows
     g = torch.Generator(device=d.device)
@@ -357,18 +380,45 @@ def test_hamming_kernel_matches_plain_version(cuda, B, M, F, share):
     keep = torch.rand(v.shape, generator=g, device=d.device) < share
     keep[:, 5000:5000 + F // 2] = True
     v = v & keep
+    qm = query_mask(qmask, B, F, g)
     n = hm.HAMMING.launches
-    gd, gi = hm.hamming_nn(q, d, v)
+    gd, gi = hm.hamming_nn(q, d, v, qm)
     assert hm.HAMMING.launches == n + 1
-    pd, pi = hm.hamming_nn_plain(q, d, v)
+    pd, pi = hm.hamming_nn_plain(q, d, v, qm)
     torch.cuda.synchronize()
     assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    on = torch.ones_like(gd, dtype=torch.bool) if qm is None else qm
+    assert bool((gd[~on] == hm.NO_MATCH).all()) and \
+        bool((gi[~on] == 0).all())
     # planted copies: distance 0 at the first of two equal map rows
     h = F // 2
-    assert torch.equal(gi[0, :h], torch.arange(5000, 5000 + h,
-                                               device=gi.device))
-    assert bool((gd[0, :h] == 0).all())
+    if qmask in ("none", "planted"):
+        assert torch.equal(gi[0, :h], torch.arange(5000, 5000 + h,
+                                                   device=gi.device))
+        assert bool((gd[0, :h] == 0).all())
     assert bool((gd[1] == hm.NO_MATCH).all()) and bool((gi[1] == 0).all())
+
+
+def test_one_hamming_call_is_one_kernel(cuda):
+    """Nothing runs before or after the kernel: the profiler sees one
+    CUDA kernel for one call, with the query-row mask and without."""
+    from torch.profiler import ProfilerActivity, profile
+    q, d, v = random_hamming_inputs(torch, 8, 20000, 256, seed=3)
+    qm = torch.zeros((8, 256), dtype=torch.bool, device="cuda")
+    qm[:, ::7] = True
+    for mask in (None, qm):
+        hm.hamming_nn(q, d, v, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hm.hamming_nn(q, d, v, mask)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))
+                   and (getattr(e, "self_device_time_total", 0) or 0) > 0}
+        assert sum(kernels.values()) == 1, kernels
+        # one instance of the kernel template (its cluster size)
+        assert any("::hamming_nn_kernel<" in k for k in kernels), kernels
 
 
 def test_hamming_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -379,6 +429,17 @@ def test_hamming_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         hm.hamming_nn(q, d[:, :, :4], v)
     with pytest.raises(ValueError):
         hm.hamming_nn(q, d.transpose(0, 1).contiguous().transpose(0, 1), v)
+    qm = torch.ones((2, 30), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        hm.hamming_nn(q, d, v, qm[:, :29])
+    with pytest.raises(TypeError):
+        hm.hamming_nn(q, d, v, qm.to(torch.uint8))
+    with pytest.raises(ValueError):
+        hm.hamming_nn(q, d, v, torch.ones((30, 2), dtype=torch.bool,
+                                          device="cuda").t())
+    wide = q[:, :1].expand(2, hm.MAX_QUERIES + 1, 8).contiguous()
+    with pytest.raises(ValueError):
+        hm.hamming_nn(wide, d, v)
 
 
 def test_mapped_run_never_waits_for_the_card(cuda):

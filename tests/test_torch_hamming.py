@@ -4,7 +4,12 @@ and the jnp path the reference's mapper runs (``brief.hamming_matrix`` +
 masked min/argmin, ``map/mapper.py:106-110``). ``tests/test_ops.py``'s
 sizes (M = 3000, F = 30) with planted exact copies, plus duplicate map
 rows (ties), an invalid tail, an all-invalid sequence, an odd M and a
-batch of 2. Distances and indices must be equal exactly.
+batch of 2. Distances and indices must be equal exactly. With a
+query-row mask (every row, none, a random share with an exact copy of a
+map entry masked, a whole sequence masked), the unmasked rows equal the
+reference's exactly and the masked ones are (10000, 0). The comparison
+tool's cuts (``tools/hamming_breakdown.py``) still match the kernel's
+source.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,3 +113,69 @@ def test_cpu_tensors_launch_nothing():
     n = th.HAMMING.launches
     port(qd, md, valid)
     assert th.HAMMING.launches == n
+
+
+@pytest.fixture(scope="module")
+def two_sequences():
+    """A batch of two sequences with the reference's answers for each:
+    [(queries, map, valid, (jnp dist, idx), (Pallas dist, idx))]."""
+    out = []
+    for c in (case(seed=7, M=1237, F=30, n_valid=1001, dup=True),
+              case(seed=8, M=1237, F=30, n_valid=600)):
+        pd, pi = pallas_hamming_nn(jnp.asarray(c[0]), jnp.asarray(c[1]),
+                                   jnp.asarray(c[2]), interpret=True)
+        out.append(c + (reference_jnp(*c), (np.asarray(pd), np.asarray(pi))))
+    return out
+
+
+def query_mask(kind):
+    """(2, 30) bool; "random" masks row 0, an exact copy of a map entry,
+    and keeps row 1, another."""
+    qm = np.ones((2, 30), bool)
+    if kind == "none":
+        qm[:] = False
+    elif kind == "random":
+        qm = np.random.default_rng(9).random((2, 30)) < 0.4
+        qm[:, 0], qm[:, 1] = False, True
+    elif kind == "one_sequence":
+        qm[1] = False
+    return qm
+
+
+@pytest.mark.parametrize("kind", ["all", "none", "random", "one_sequence"])
+def test_query_mask_keeps_the_reference_on_unmasked_rows(two_sequences,
+                                                         kind):
+    qm = query_mask(kind)
+    q, m, v = (torch.from_numpy(np.stack([c[k] for c in two_sequences])
+                                .astype(np.int64 if k < 2 else bool))
+               for k in range(3))
+    d, i = th.hamming_nn(q, m, v, qmask=torch.from_numpy(qm))
+    assert d.dtype == i.dtype == torch.int64
+    for k, (_, _, _, ref, pal) in enumerate(two_sequences):
+        on = qm[k]
+        for rd, ri in (ref, pal):
+            np.testing.assert_array_equal(d[k].numpy()[on], rd[on])
+            np.testing.assert_array_equal(i[k].numpy()[on], ri[on])
+        assert (d[k].numpy()[~on] == th.NO_MATCH).all()
+        assert (i[k].numpy()[~on] == 0).all()
+    if kind == "random":
+        # row 0 copies a map entry exactly, but is masked; row 1 is not
+        assert ref[0][0] == 0 and d[0, 0] == th.NO_MATCH and i[0, 0] == 0
+        assert d[0, 1] == 0
+
+
+@pytest.mark.parametrize("build", ["scan", "stage", "score", "fold", "all",
+                                   "cluster8", "flat", "one_cta",
+                                   "one_group"])
+def test_breakdown_cuts_match_the_kernel_source(build):
+    """Each cut (and each variant) replaces code that stands once in
+    ``csrc/hamming.cu``, and nothing else; ``all`` makes every cut."""
+    from xivo_tpu_torch.tools import hamming_breakdown as hb
+    full = hb.variant_source("full")
+    subs = (sum(hb.CUTS.values(), []) if build == "all" else
+            hb.CUTS.get(build) or hb.VARIANTS[build])
+    src = hb.variant_source(build)
+    assert len(full) - len(src) == sum(len(a) - len(b) for a, b in subs)
+    for old, new in subs:
+        assert full.count(old) == 1 and (new == "" or new in src)
+    assert "hamming_nn_kernel(const long long* __restrict__ q" in src

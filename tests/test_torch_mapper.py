@@ -2,9 +2,12 @@
 against the JAX package, on the CPU, in float64.
 
 * ``map_insert``: ``tests/test_mapper.py``'s ring buffer (with its
-  wrap-around), fusion on re-retirement (and a new landmark after it) and
-  the fusion radius; the tables equal the reference's (integers exactly,
-  positions and covariances within 1e-12);
+  wrap-around), fusion on re-retirement (and a new landmark after it),
+  the fusion radius, and rows that do not retire beside near and exact
+  copies of map entries (the port's search skips them through its query
+  mask; the reference scores every row); the tables equal the
+  reference's (integers exactly, positions and covariances within
+  1e-12);
 * ``close_loop`` on ``tests/test_mapper.py``'s drift scenario (a map at
   the true poses, a filter that believes it drifted), in the square-root
   form, with the reference's
@@ -118,6 +121,25 @@ def test_map_fusion_radius_matches_reference():
     ms2 = insert_both(ms, Xs + 10.0, desc, np.ones(1, bool), cov=cov,
                       nn_dist_thresh=30, merge_radius=0.5)
     assert int(ms2.count) == 2 and int(ms2.n_merged) == 0
+
+
+def test_map_fusion_ignores_rows_that_do_not_retire():
+    """Rows 3 and 4 of the second batch are copies of map entries within
+    the merge radius (row 3 two bits away, row 4 exact) but do not retire:
+    they must neither fuse nor insert, while rows 0-2 fuse."""
+    rng = np.random.default_rng(11)
+    ms = jax_init_map(capacity=64, dtype=jnp.float64)
+    Xs = rng.uniform(-2, 2, (6, 3))
+    desc = rng.integers(0, 2 ** 32, (6, 8), dtype=np.uint32)
+    cov = np.tile(0.2 * np.eye(3), (6, 1, 1))
+    ms = insert_both(ms, Xs, desc, np.ones(6, bool), cov=cov,
+                     nn_dist_thresh=30)
+    Xs2 = Xs + rng.normal(0, 0.05, (6, 3))
+    desc2 = desc.copy()
+    desc2[3, 0] ^= np.uint32(3)
+    retiring = np.array([1, 1, 1, 0, 0, 0], bool)
+    ms2 = insert_both(ms, Xs2, desc2, retiring, cov=cov, nn_dist_thresh=30)
+    assert int(ms2.n_merged) == 3 and int(ms2.count) == 6
 
 
 @pytest.fixture(scope="module")

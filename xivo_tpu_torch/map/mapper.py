@@ -111,7 +111,9 @@ def map_insert(ms: MapState, Xs, desc, valid, cov=None, gid=None,
     epoch = epoch.to(torch.int64)[:, None].expand(B, n)
 
     if nn_dist_thresh >= 0:
-        nnd, nn = hamming.hamming_nn(desc.contiguous(), ms.desc, ms.valid)
+        # only the retiring rows' matches are read (merge needs `valid`)
+        nnd, nn = hamming.hamming_nn(desc.contiguous(), ms.desc, ms.valid,
+                                     qmask=valid.contiguous())
         X1 = take_rows(ms.Xs, nn)
         P1 = take_rows(ms.cov, nn)
         close = torch.linalg.vector_norm(Xs - X1, dim=-1) < merge_radius
