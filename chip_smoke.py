@@ -34,7 +34,10 @@ image path (slice 2):
    template windows, B5 Gauss-Newton loop) saw at every pyramid level;
    hold each against its plain version on those inputs and on the inputs
    of an LK call on random textures (B4 also on random patches), and
-   time kernel, plain version and, for B4, ``grid_sample``;
+   time kernel, plain version and, for B4, ``grid_sample``; time B5 on
+   each level of the last recorded frame and print the four launches'
+   sum, and the longest chain (the most iterations a track runs, from
+   the plain version a step at a time) beside its bound;
 7. check the CUDA image path against the port's CPU image path at full
    width (B = 2): 10 frames of the bench config and 20 with the default
    admission gate (features in the state from frame ~3 on); poses within
@@ -602,20 +605,10 @@ def texture_lk_inputs(torch, lko, cfg, batch, n):
     return seen
 
 
-def gn_iterations(lko, args):
-    """GN iterations this input needs, summed over its tracks: one pass of
-    the plain loop, a step at a time (its state is (pt, st)), counting the
-    tracks not yet done before each step."""
-    sp, T, Gx, Gy, sc, pt, st, iters = args
-    n = 0
-    for _ in range(iters):
-        n = n + (st[..., 0] < 0.5).sum()
-        pt, st = lko.gn_tracks_plain(sp, T, Gx, Gy, sc, pt, st, 1)
-    return int(n)
-
-
 def check_lk_kernels(torch, lko, captured, random_inputs, cfg):
-    """Hold B4 and B5 against their plain versions; time both."""
+    """Hold B4 and B5 against their plain versions; time both (B5 on each
+    level of the last recorded frame)."""
+    from xivo_tpu_torch.tools.lk_breakdown import chain_lengths
     eps = cfg.klt_eps
     results = []
 
@@ -733,13 +726,20 @@ def check_lk_kernels(torch, lko, captured, random_inputs, cfg):
         raise AssertionError("lk_gn_tracks: converged positions disagree")
     if dunconv >= GN_UNCONV_TOL:
         raise AssertionError("lk_gn_tracks: unconverged positions disagree")
-    args = captured["gn_tracks"][-1]
+    # the last recorded frame's launches, one a level, coarse to fine:
+    # its last is level 0, the row PERF.md keeps
+    frame = captured["gn_tracks"][-cfg.klt_max_level:]
+    level_ms = [cuda_ms(torch, lambda a=a: lko.gn_tracks(*a)) for a in frame]
+    args = frame[-1]
     sp, T, Gx, Gy, sc, pt, st, iters = args
-    ms = cuda_ms(torch, lambda: lko.gn_tracks(*args))
+    ms = level_ms[-1]
     plain_ms = cuda_ms(torch, lambda: lko.gn_tracks_plain(*args))
     M, S, w = T.shape[0] * T.shape[1], sp.shape[-1], T.shape[-1]
     n_live = int((st[..., 0] < 0.5).sum())
-    n_iter = gn_iterations(lko, args)
+    # iterations each track runs (the plain loop a step at a time): the
+    # sum for the bound's operations, the largest the longest chain
+    chains = chain_lengths(args)
+    n_iter, max_chain = int(chains.sum()), int(chains.max())
     # least bytes: a live track reads T, Gx, Gy, one (w + 1)^2 window of
     # its search patch, its 9 scalars, position and state; every track
     # reads and writes its position and state. Operations, per iteration
@@ -750,14 +750,20 @@ def check_lk_kernels(torch, lko, captured, random_inputs, cfg):
     print(f"kernel lk_gn_tracks: shape {M}x{S}x{S}, {n_live} live tracks, "
           f"{n_iter} iterations in all ({iters} at most each) ms {ms:.4f} "
           f"plain_ms {plain_ms:.4f} library_ms None bound_ms "
-          f"{bound_ms:.5f} ({bound_by})", flush=True)
+          f"{bound_ms:.5f} ({bound_by}); longest chain {max_chain} "
+          f"iterations", flush=True)
+    print(f"kernel lk_gn_tracks: a frame's {len(frame)} launches, levels "
+          f"{len(frame) - 1} to 0: " + ", ".join(f"{t:.4f}" for t in level_ms)
+          + f" ms, sum {sum(level_ms):.4f} ms (level 0: {ms:.4f} ms)",
+          flush=True)
     results.append(dict(
         name="lk_gn_tracks", route="cuda", source="xivo_tpu_torch/csrc/lk.cu",
         # max_abs_err: positions of the tracks whose flags agree
         replaces=REPLACES["lk_gn_tracks"], launches=None, max_abs_err=dsame,
         flags_differ=stats["flags_differ"], live_tracks=stats["live"],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, shape=[M, S, S], gn_iterations=n_iter))
+        library_ms=None, shape=[M, S, S], gn_iterations=n_iter,
+        max_chain=max_chain, level_ms=level_ms, frame_ms=sum(level_ms)))
     return results
 
 

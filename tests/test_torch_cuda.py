@@ -26,7 +26,11 @@ Gauss-Newton loop's flags equal on at least 99.5 % of the live tracks
 and its positions within 2 eps = 0.02 px on the tracks that converged in
 both (the warp sums in another order, so a step within rounding of eps
 may stop one iteration earlier or later), and within ``chip_smoke``'s
-``GN_UNCONV_TOL`` (0.1 px) on the tracks that are unconverged in both.
+``GN_UNCONV_TOL`` (0.1 px) on the tracks that are unconverged in both,
+one launch a call and the tracks that start done returned as they came:
+on the call's levels, on 1, 3, 5 and 513 tracks from track 1 of a table
+(patch bases off 16-byte boundaries, a partial last block) with 0, 1
+and 15 iterations, with every track done, and from the box's corners.
 Hamming kernel: exactly equal distances and indices (integer work), with
 ties, invalid entries, an all-invalid sequence and a sparse map (as a
 live map is: a few hundred valid entries of 20000), without a query-row
@@ -39,6 +43,8 @@ same state and map: tables equal, positions (m) and covariances (of
 their largest entry) within ``chip_smoke``'s ``MAP_FUSE_TOL32`` in
 float32 and ``MAP_FUSE_TOL64`` in float64 (see there why they differ).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -306,29 +312,98 @@ def test_lk_template_kernel_matches_plain_version(cuda):
             assert float(rel.max()) < 1e-5
 
 
+def hold_gn(args):
+    """One launch of B5 on args, held against the plain version; returns
+    the kernel's (pt, st)."""
+    sp, T, Gx, Gy, sc, pt, st, iters = args
+    n = lko.GN.launches
+    pk, sk = lko.gn_tracks(sp, T, Gx, Gy, sc, pt, st, iters)
+    assert lko.GN.launches == n + 1
+    pp, sp_ = lko.gn_tracks_plain(sp, T, Gx, Gy, sc, pt, st, iters)
+    torch.cuda.synchronize()
+    live = st[..., 0] < 0.5
+    same = (sk == sp_).all(dim=-1) & live
+    assert float(same.sum()) >= 0.995 * float(live.sum())
+    # positions of the tracks that converged in both; one still
+    # unconverged after the budget moves by steps >= eps, so where it
+    # stops depends on rounding: it is held to a looser limit
+    conv = same & (sp_[..., 0] > 0.5) & (sp_[..., 1] < 0.5)
+    unconv = same & (sp_[..., 0] < 0.5)
+    dpos = (pk - pp).abs().amax(dim=-1)
+    assert float(torch.where(conv, dpos, 0.0).max()) < 2 * EPS
+    assert float(torch.where(unconv, dpos, 0.0).max()) \
+        < GN_UNCONV_TOL
+    assert bool(((pk >= sc[..., 4:6]) & (pk <= sc[..., 6:8])).all())
+    # tracks that start done come out exactly as they went in
+    assert torch.equal(pk[~live], pt[~live])
+    assert torch.equal(sk[~live], st[~live])
+    return pk, sk
+
+
 def test_lk_gn_kernel_matches_plain_version(cuda):
     seen = lk_inputs()
-    for sp, T, Gx, Gy, sc, pt, st, iters in seen["gn_tracks"]:
-        n = lko.GN.launches
-        pk, sk = lko.gn_tracks(sp, T, Gx, Gy, sc, pt, st, iters)
-        assert lko.GN.launches == n + 1
-        pp, sp_ = lko.gn_tracks_plain(sp, T, Gx, Gy, sc, pt, st, iters)
-        torch.cuda.synchronize()
-        live = st[..., 0] < 0.5
-        same = (sk == sp_).all(dim=-1) & live
-        assert float(same.sum()) >= 0.995 * float(live.sum())
-        # positions of the tracks that converged in both; one still
-        # unconverged after the budget moves by steps >= eps, so where it
-        # stops depends on rounding: it is held to a looser limit
-        conv = same & (sp_[..., 0] > 0.5) & (sp_[..., 1] < 0.5)
-        unconv = same & (sp_[..., 0] < 0.5)
-        dpos = (pk - pp).abs().amax(dim=-1)
-        assert float(torch.where(conv, dpos, 0.0).max()) < 2 * EPS
-        assert float(torch.where(unconv, dpos, 0.0).max()) < GN_UNCONV_TOL
-        assert bool(((pk >= sc[..., 4:6]) & (pk <= sc[..., 6:8])).all())
-        # tracks that start done come out exactly as they went in
-        assert torch.equal(pk[~live], pt[~live])
-        assert torch.equal(sk[~live], st[~live])
+    for args in seen["gn_tracks"]:
+        hold_gn(args)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_track_table(iters=15):
+    """The B5 inputs of every level of lk_inputs() as one table of 2048
+    tracks (leading dimension flattened), and the kernel's outputs for
+    them, one launch a level, each held by hold_gn; on the card."""
+    calls = lk_inputs()["gn_tracks"]
+    outs = [hold_gn(c[:7] + (iters,)) for c in calls]
+
+    def flat(xs):
+        return torch.cat([x.reshape((-1,) + x.shape[2:]) for x in xs])
+    return (tuple(flat([c[i] for c in calls]) for i in range(7)),
+            tuple(flat([o[i] for o in outs]) for i in range(2)))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 15])
+@pytest.mark.parametrize("M", [1, 3, 5, 4 * 128 + 1])
+def test_lk_gn_kernel_at_any_track_count(cuda, M, iters):
+    """M tracks from track 1 of the table: every patch base 4 bytes off a
+    16-byte boundary at one track in four, a partial last block of four
+    warps. Each track's result is the one it gets in its level's launch,
+    bit for bit (a warp a track; the plain version on a table of another
+    shape may sum in another order, which moves an unconverged track by
+    more than GN_UNCONV_TOL); the flags agree with the plain version's
+    and a track that starts done, or any track with no iterations, comes
+    out as it went in."""
+    table, (pk_all, sk_all) = gn_track_table(iters)
+    sp, T, Gx, Gy, sc, pt, st = (x[1:1 + M] for x in table)
+    assert all(x.is_contiguous() for x in (sp, T, Gx, Gy, sc, pt, st))
+    n = lko.GN.launches
+    pk, sk = lko.gn_tracks(sp, T, Gx, Gy, sc, pt, st, iters)
+    assert lko.GN.launches == n + 1
+    _, sk_plain = lko.gn_tracks_plain(sp, T, Gx, Gy, sc, pt, st, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pk_all[1:1 + M])
+    assert torch.equal(sk, sk_all[1:1 + M])
+    live = st[:, 0] < 0.5
+    same = (sk == sk_plain).all(dim=-1) & live
+    assert float(same.sum()) >= 0.995 * float(live.sum())
+    done = ~live if iters else torch.ones_like(live)
+    assert torch.equal(pk[done], pt[done]) and torch.equal(sk[done], st[done])
+
+
+def test_lk_gn_kernel_when_every_track_starts_done(cuda):
+    sp, T, Gx, Gy, sc, pt, st = gn_track_table()[0]
+    st = torch.stack([torch.ones_like(st[:, 0]), st[:, 1]], dim=-1)
+    pk, sk = hold_gn((sp, T, Gx, Gy, sc, pt, st, 15))
+    assert torch.equal(pk, pt) and torch.equal(sk, st)
+
+
+def test_lk_gn_kernel_from_the_corners_of_the_box(cuda):
+    """Iterates that start on each corner of their box (the patch's
+    first or last searchable window on both axes)."""
+    sp, T, Gx, Gy, sc, pt, st = gn_track_table()[0]
+    lo, hi = sc[:, 4:6], sc[:, 6:8]
+    corner = torch.arange(pt.shape[0], device=pt.device) % 4
+    pt = torch.stack([torch.where(corner % 2 == 0, lo[:, 0], hi[:, 0]),
+                      torch.where(corner < 2, lo[:, 1], hi[:, 1])], dim=-1)
+    hold_gn((sp, T, Gx, Gy, sc, pt.contiguous(), st, 15))
 
 
 def test_lk_wrappers_refuse_what_the_kernels_do_not_take(cuda):

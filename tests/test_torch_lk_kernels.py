@@ -17,6 +17,11 @@ static-shift sum adds exact zeros). For the Gauss-Newton loop the flags
 agree exactly and the positions within 1e-4 px on every track, converged
 or not (the two sum the 225 window products in another order; the
 largest difference read 3.8e-6 px).
+
+Also on those inputs: the plain loop with no iterations returns its
+inputs; the breakdown tool's chain lengths (``tools/lk_breakdown.py``,
+the plain loop a step at a time) equal what the whole loop gives at each
+budget; and the tool's cuts and variants still match ``csrc/lk.cu``.
 """
 import functools
 
@@ -32,6 +37,7 @@ from xivo_tpu.ops import lk_pallas
 from xivo_tpu_torch.frontend import lk
 from xivo_tpu_torch.frontend.image import build_pyramid
 from xivo_tpu_torch.ops import lk as lk_ops
+from xivo_tpu_torch.tools import lk_breakdown as lb
 
 torch.set_num_threads(2)
 S, W_, ITERS, EPS = 31, 15, 15, 0.01
@@ -117,3 +123,48 @@ def test_gn_plain_version_matches_tpu_kernel(captured):
         done0 = st[..., 0].numpy() > 0.5
         np.testing.assert_array_equal(gp[done0], pt.numpy()[done0])
     assert converged_total > 200 and unconverged_total > 0
+
+
+def test_gn_plain_version_with_no_iterations_returns_its_inputs(captured):
+    for sp, T, Gx, Gy, sc, pt, st, _ in captured["gn_tracks"]:
+        gp, gs = lk_ops.gn_tracks_plain(sp, T, Gx, Gy, sc, pt, st, 0)
+        assert torch.equal(gp, pt) and torch.equal(gs, st)
+
+
+def test_chain_lengths_match_the_whole_loop_at_each_budget(captured):
+    """A track runs step k + 1 when it is not done after k steps: the
+    tool's count, a step at a time, equals the sum over budgets k <
+    iters of the whole plain loop's not-done flags."""
+    longest = 0
+    for args in captured["gn_tracks"]:
+        sp, T, Gx, Gy, sc, pt, st, iters = args
+        want = torch.zeros(st.shape[:-1], dtype=torch.int64)
+        for k in range(iters):
+            _, sk = lk_ops.gn_tracks_plain(sp, T, Gx, Gy, sc, pt, st, k)
+            want += sk[..., 0] < 0.5
+        got = lb.chain_lengths(args)
+        assert torch.equal(got, want)
+        assert torch.equal(got[st[..., 0] > 0.5], torch.zeros_like(
+            got[st[..., 0] > 0.5]))
+        longest = max(longest, int(got.max()))
+    assert longest == ITERS      # some tracks are still unconverged
+
+
+BUILDS = ["load", "regs", "iterate", "all", "empty", "warps2", "warps4",
+          "strided4", "padded", "idiv"]
+
+
+@pytest.mark.parametrize("build", BUILDS)
+def test_breakdown_cuts_match_the_kernel_source(build):
+    """Each cut (and each variant) replaces code that stands once in
+    ``csrc/lk.cu``, and nothing else; ``all`` makes the three cuts."""
+    assert set(lb.BUILDS) == {"full", *BUILDS}
+    full = lb.variant_source("full")
+    subs = (sum(lb.CUTS.values(), []) if build == "all" else lb._EMPTY
+            if build == "empty" else lb.CUTS.get(build)
+            or lb.VARIANTS[build])
+    src = lb.variant_source(build)
+    assert len(full) - len(src) == sum(len(a) - len(b) for a, b in subs)
+    for old, new in subs:
+        assert full.count(old) == 1 and new in src
+    assert "gn_kernel(const float* __restrict__ sp" in src

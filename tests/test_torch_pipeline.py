@@ -222,6 +222,7 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.tools.profile_linalg\n"
         "import xivo_tpu_torch.tools.chol_breakdown\n"
         "import xivo_tpu_torch.tools.hamming_breakdown\n"
+        "import xivo_tpu_torch.tools.lk_breakdown\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'xivo_tpu'\n"
         "       or m.startswith('xivo_tpu.')]\n"
