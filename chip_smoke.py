@@ -49,8 +49,9 @@ image path (slice 2):
    at least 20 tracks from frame 10 on), 4 launches of B4 and B5 per
    frame and one of B1-B3;
 9. where the time goes, for the three main paths: ``torch.profiler``
-   over ten frame steps (frames 30-39; the mapped path's 131-140) gives
-   the device's busy share and its time by kernel, and the same frames
+   (the device's activity alone) over ten frame steps (frames 30-39; the
+   mapped path's 131-140) gives the device's busy share and its time by
+   kernel, and the same frames
    run once more with a synchronize around each stage of the frame step
    give each stage's time (the image tracker's stages, from
    ``build_pyramid`` to BRIEF's ``extract``, are inside
@@ -119,7 +120,28 @@ right after phase 5, whose ATE they use):
    twice a frame), each held against its plain version on the inputs of
    the frames where OOS rows were applied (from frame 8 on; B1 by its
    backward error, see BACKWARD_TOL) and timed (B1 also as B7, beside
-   ``cholesky_ex``).
+   ``cholesky_ex``);
+slice 10, the reference's default filter (reference Prince-Dormand
+propagation through capped, masked substep loops; dense covariance with
+Joseph updates; phases 20-22 run right after phase 19):
+20. check the CUDA path of ``config_from_json(PCW_CFG)`` with nothing
+   overridden (float32, default Dims) against its CPU path on B = 2 for
+   FULL_CMP_FRAMES frames: poses within 1e-3 m, counts equal;
+21. run it at full width: B = 256 sequences of the 5 s stream (T = 100),
+   the depths initialized from the simulation as the reference's bound
+   test does (``tests/test_e2e_pcw.py:34-44``), the substep cap sized to
+   the stream (``runner.fit_substeps``), counters at 0 and the sync debug
+   mode on; require finite poses, ATE-RMSE of sequence 0 below 0.10 m, no
+   interval left unfinished by the cap (read once after the loop) and no
+   launch of B1-B3 or B7; print the throughput, peak memory and the most
+   substeps an interval took;
+22. the accuracy config in the full form with compression forced
+   (``compression_trigger_ratio=0.5``), B = 256, FULL_COMPRESS_FRAMES
+   frames, counted: B1 once a frame (the bordered Gram at 229; B2, B3
+   never), held against its plain version by its backward error on the
+   inputs of the frames with OOS rows, as phase 19 does.
+Phase 9 also profiles ten frames of phase 21's path (frames 30-39), with
+the IMU-sample updates and the Joseph updates among its stages.
 
 Each kernel's entry in the JSON line carries its launches on every
 path (B7's ``launches`` are the profile's; 0 on the filter paths). The
@@ -234,6 +256,17 @@ PROFILE_ITERS = 10
 ACC_CMP_FRAMES, ACC_COMPRESS_FRAMES, ACC_CAPTURE_FRAMES = 40, 20, 20
 ACC_PATH_TOL = 1e-3
 ACC_ATE_FACTOR, ACC_ATE_FLOOR = 1.25, 0.015
+# slice 10, the reference's default filter (reference Prince-Dormand
+# propagation, full covariance, Joseph updates): the unmodified PCW config's
+# CUDA path against its CPU path on B = 2 for FULL_CMP_FRAMES frames; the
+# main run on the bench stream with the depths initialized from the
+# simulation, as the reference's bound test runs the config
+# (tests/test_e2e_pcw.py:34-44); the accuracy config in the full form with
+# compression forced for FULL_COMPRESS_FRAMES frames
+FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES = 10, 20
+FULL_PATH_TOL = 1e-3
+COUNT_FIELDS = ("num_instate_features", "num_instate_groups", "num_tracked",
+                "num_mh_rejected", "num_oos_dropped")
 # B6's bound by operations: the least work a (query, entry) pair's
 # distance needs, whatever the kernel does. 8 XORs; carry-save adders
 # (a sum and a carry, one 3-input logic operation each) over seven of the
@@ -985,14 +1018,20 @@ def where_time_goes(torch, label, run, stages, n_frames):
     from torch.profiler import ProfilerActivity, profile
     run()                                  # warm: same shapes, same code
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: tracing the host's operators too slowed
+    # the profiled step ~1.5 x and its table read ~4 x, with the same
+    # device times and launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}
-    for e in prof.key_averages():
+    t0 = time.perf_counter()
+    events = prof.key_averages()
+    print(f"{label} time: the profiler's table read in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for e in events:
         if getattr(e, "device_type", None) is None or \
                 "CUDA" not in str(e.device_type):
             continue
@@ -1026,10 +1065,11 @@ def where_time_goes(torch, label, run, stages, n_frames):
         + " a step", flush=True)
 
 
-def breakdown_phase(torch, pcw_cfg, mapped):
-    """Phase 9: where the frame step's time goes, on the three main paths;
-    `mapped` is (config, (states, maps) before the window, window)."""
-    from xivo_tpu_torch.filter import pipeline
+def breakdown_phase(torch, pcw_cfg, mapped, full_cfg):
+    """Phase 9: where the frame step's time goes, on the three main paths
+    and the default filter's (`full_cfg`, phase 21's config); `mapped` is
+    (config, (states, maps) before the window, window)."""
+    from xivo_tpu_torch.filter import pipeline, update
     from xivo_tpu_torch.frontend import brief, tracker
     from xivo_tpu_torch.runner import run_batch, run_batch_image
     from xivo_tpu_torch.sim.image_stream import build_image_stream
@@ -1043,6 +1083,17 @@ def breakdown_phase(torch, pcw_cfg, mapped):
                     [(pipeline, "propagate_frame"),
                      (pipeline, "tracker_pointcloud"),
                      (pipeline, "update_step")], n)
+
+    s, fib, _ = make_run(full_cfg, torch, DEV, B, frames=b)
+    s, _ = run_batch(full_cfg, s, type(fib)(*(x[:, :a] for x in fib)))
+    win = type(fib)(*(x[:, a:b] for x in fib))
+    where_time_goes(torch, f"default filter B={B}",
+                    lambda: run_batch(full_cfg, s, win),
+                    [(pipeline, "propagate_frame"),
+                     (pipeline, "imu_sample_update"),
+                     (pipeline, "tracker_pointcloud"),
+                     (pipeline, "update_step"), (update, "joseph_rows")], n)
+    del s, win
 
     cfg = image_config()
     stream = build_image_stream(cfg)
@@ -1578,23 +1629,30 @@ def profile_phase(torch, chol):
 
 class OosRows:
     """Add up, on the device, the OOS rows each sequence applied in each
-    frame (``oos.sqrt_update``'s valid rows) while the `with` block runs:
+    frame (the valid rows of ``oos.sqrt_update`` on the square-root form,
+    of ``oos.joseph_rows`` on the full form) while the `with` block runs:
     nothing is read back to the host, so the frame loop does not wait."""
+
+    UPDATES = ("sqrt_update", "joseph_rows")
 
     def __init__(self, oos):
         self.oos, self.rows = oos, []
 
     def __enter__(self):
-        self.orig = self.oos.sqrt_update
-
-        def rec(S, H, inn, diagR, row_valid):
-            self.rows.append(row_valid.sum(-1))
-            return self.orig(S, H, inn, diagR, row_valid)
-        self.oos.sqrt_update = rec
+        self.orig = {n: getattr(self.oos, n) for n in self.UPDATES}
+        for name, fn in self.orig.items():
+            setattr(self.oos, name, self._wrap(fn))
         return self
 
+    def _wrap(self, fn):
+        def rec(P, H, inn, diagR, row_valid):
+            self.rows.append(row_valid.sum(-1))
+            return fn(P, H, inn, diagR, row_valid)
+        return rec
+
     def __exit__(self, *exc):
-        self.oos.sqrt_update = self.orig
+        for name, fn in self.orig.items():
+            setattr(self.oos, name, fn)
 
     def per_frame(self):
         """(B, T) int64 on the host."""
@@ -1718,6 +1776,113 @@ def accuracy_phases(torch, lc, chol, base_ate):
     return launches, oos_shapes
 
 
+def default_config(**over):
+    """``config_from_json(PCW_CFG)``: the reference's default filter
+    (float32, default Dims, reference propagation, full covariance), with
+    `over` on top and its substep cap sized to the bench stream."""
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.runner import fit_substeps
+    from xivo_tpu_torch.sim.configs import PCW_CFG
+    from xivo_tpu_torch.sim.stream import build_pcw_stream
+    cfg = config_from_json(PCW_CFG, **over)
+    fi, _ = build_pcw_stream(cfg, total_time=TOTAL_TIME, noise_px=0.25)
+    return fit_substeps(cfg, fi)
+
+
+def full_form_phases(torch, lc, chol):
+    """Phases 20-22: the reference's default filter. Returns the main
+    run's launches, the full-form accuracy run's launches with compression
+    forced, B1's check at 229 on that run's inputs and the main run's
+    config (for phase 9)."""
+    from xivo_tpu_torch.filter import oos, propagate
+    from xivo_tpu_torch.runner import run_batch
+    from xivo_tpu_torch.sim.configs import accuracy_config
+    kernels = lc.KERNELS + chol.KERNELS
+
+    # phase 20: the unmodified config, CUDA path against the CPU path
+    cfg = default_config()
+    assert (cfg.dims.full, cfg.dtype, cfg.propagation_mode,
+            cfg.covariance_form) == (228, "float32", "reference", "full")
+    res = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        s, fib, _ = make_run(cfg, torch, dev, 2, frames=FULL_CMP_FRAMES)
+        res[dev] = run_batch(cfg, s, fib)[1]
+        print(f"default filter {dev} path: {FULL_CMP_FRAMES} frames in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    og, oc = res[DEV], res["cpu"]
+    dpos = float((og.Tsb.cpu() - oc.Tsb).abs().max())
+    same = all(torch.equal(getattr(og, n).cpu(), getattr(oc, n))
+               for n in COUNT_FIELDS)
+    print(f"default filter cuda vs cpu path (config_from_json(PCW_CFG), "
+          f"max_substeps {cfg.max_substeps}), {FULL_CMP_FRAMES} frames: max "
+          f"|dTsb| {dpos:.3e} m; in-state features cuda "
+          f"{og.num_instate_features[0].tolist()} cpu "
+          f"{oc.num_instate_features[0].tolist()}; counts "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not (dpos < FULL_PATH_TOL and same):
+        raise AssertionError("the CUDA default-filter path disagrees with "
+                             "the CPU path")
+
+    # phase 21: the main run at full width, counted
+    cfg = default_config(sim_initialize_depths=True)
+    s, fib, gt = make_run(cfg, torch, DEV, B)
+    T = int(fib.frame_dt.shape[1])
+    propagate.reset_substep_counts(DEV)
+    (s, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch(cfg, s, fib, check=False))
+    most = propagate.check_substeps(DEV)      # raises on an unfinished one
+    Tsb = outs.Tsb.cpu().numpy()
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    err = np.linalg.norm(Tsb - gt["Tsb"][None], axis=2)
+    ates = np.sqrt(np.mean(err ** 2, axis=1))
+    print(f"default filter main path: B={B} T={T} D={cfg.dims.full} "
+          f"(reference Prince-Dormand propagation, stepsize "
+          f"{cfg.stepsize}, max_substeps {cfg.max_substeps}; full "
+          f"covariance) wall {wall:.3f} s sequence-frames/s "
+          f"{B * T / wall:.1f} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{launches}; the most substeps an interval took {most}, "
+          f"intervals left unfinished 0", flush=True)
+    print(f"default filter main path, sequence 0: ATE-RMSE {ates[0]:.5f} m "
+          f"(bound {ATE_BOUND}), final error {err[0, -1]:.5f} m; in-state "
+          f"features at the end {int(outs.num_instate_features[0, -1])}; "
+          f"all sequences: ATE-RMSE {ates.min():.5f}-{ates.max():.5f} m",
+          flush=True)
+    if not ates[0] < ATE_BOUND:
+        raise AssertionError(f"ATE {ates[0]} >= {ATE_BOUND}")
+    if any(launches.values()):
+        raise AssertionError(f"launches {launches}, expected none")
+
+    # phase 22: the accuracy config in the full form, compression forced
+    ccfg = accuracy_config(covariance_form="full",
+                           compression_trigger_ratio=0.5)
+    run_batch(ccfg, *make_run(ccfg, torch, DEV, 2, frames=2)[:2])  # constants
+    s, fib, _ = make_run(ccfg, torch, DEV, B, frames=FULL_COMPRESS_FRAMES)
+    T = FULL_COMPRESS_FRAMES
+    with Recorder(torch, lc, ["chol_lanes"]) as seen, OosRows(oos) as rows:
+        (_, outs), wall, claunches = counted(
+            torch, kernels, lambda: run_batch(ccfg, s, fib))
+    rows = rows.per_frame()
+    print(f"full-form accuracy path, compression forced: B={B} T={T} wall "
+          f"{wall:.3f} s sequence-frames/s {B * T / wall:.1f} launches "
+          f"{claunches}; OOS rows of sequence 0 {rows[0].tolist()}",
+          flush=True)
+    expect = {"chol_lanes": T, "chol_inv_lanes": 0, "tri_inv_lanes": 0,
+              "chol_blocked": 0}
+    if claunches != expect or not torch.isfinite(outs.Tsb).all():
+        raise AssertionError(f"launches {claunches}, expected {expect}")
+    inputs = [a[0] for a in seen["chol_lanes"] if a[0].shape[-1] == 229]
+    if len(inputs) != T or rows[0].sum() == 0:
+        raise AssertionError(f"B1 ran {len(inputs)} times at 229, expected "
+                             f"{T}, or no OOS row was applied")
+    del seen
+    check = check_oos_shape(torch, "chol_lanes", lc.chol_lanes,
+                            lc.chol_plain, inputs, backward=True)
+    return launches, claunches, check, cfg
+
+
 def backward_use(torch, kernel, plain, inputs):
     """Worst ratio of the kernel's backward error to its limit over the
     inputs, and the plain float32 version's own worst (see BACKWARD_TOL)."""
@@ -1798,6 +1963,10 @@ def main():
     print(f"pcw phases done: {time.time() - t_start:.1f} s", flush=True)
     acc_launches, oos_shapes = accuracy_phases(torch, lc, chol, base_ate)
     print(f"accuracy phases done: {time.time() - t_start:.1f} s", flush=True)
+    full_launches, full_acc_launches, full_b1, full_cfg = full_form_phases(
+        torch, lc, chol)
+    print(f"default filter phases done: {time.time() - t_start:.1f} s",
+          flush=True)
     lk_kernels, img_launches = image_phases(torch, lc, lko, chol.KERNELS)
     print(f"image phases done: {time.time() - t_start:.1f} s", flush=True)
     hm_kernel, map_launches, mcfg, before, win = mapped_phases(
@@ -1806,15 +1975,20 @@ def main():
     refine_phase(torch, mcfg)
     img_map_launches = image_mapped_phase(
         torch, lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS)
-    breakdown_phase(torch, pcw_config(), (mcfg, before, win))
+    breakdown_phase(torch, pcw_config(), (mcfg, before, win), full_cfg)
     del before
     for k in kernels:
         k["oos_shape"] = oos_shapes[k["name"]]
+        if k["name"] == "chol_lanes":
+            k["full_form_compression"] = full_b1
     kernels += lk_kernels + [hm_kernel, chol_entry]
     for k in kernels:
         name = k["name"]
         k["launches_pcw_path"] = pcw_launches.get(name, 0)
         k["launches_accuracy_path"] = acc_launches.get(name, 0)
+        k["launches_default_filter_path"] = full_launches.get(name, 0)
+        k["launches_full_accuracy_compressed_path"] = full_acc_launches.get(
+            name, 0)
         k["launches_image_path"] = img_launches.get(name, 0)
         k["launches_mapped_path"] = map_launches.get(name, 0)
         k["launches_image_mapped_path"] = img_map_launches[name]

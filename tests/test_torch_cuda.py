@@ -18,7 +18,11 @@ counter) at the filter's widths (228, 229, 60, the tiny Dims' 96) and
 batches of 1, 2 and 256; B1 at 229 on a rank-deficient bordered Gram (OOS
 measurement compression), held by its backward error within
 ``chip_smoke``'s ``BACKWARD_TOL`` (see there why not row by row). A short run of the recommended accuracy config
-at full width under the sync debug mode, with its launches a frame.
+at full width under the sync debug mode, with its launches a frame. The
+reference's default filter (reference propagation, full covariance) at
+full width on the card against the CPU, and its frame loop under the sync
+debug mode with no propagation interval left unfinished by the substep
+cap.
 LK kernels: on the inputs one pyramidal LK call on a shifted texture
 gives them; the template windows within 1e-5 of each
 track's largest entry (the same four taps, weights and order), the
@@ -274,6 +278,54 @@ def test_accuracy_run_never_waits_for_the_card(cuda, ratio, b1):
     assert got == {"chol_lanes": b1 * T, "chol_inv_lanes": 3 * T,
                    "tri_inv_lanes": 3 * T}
     assert bool(torch.isfinite(out.Tsb).all())
+
+
+def test_default_filter_on_the_card_matches_the_cpu(cuda):
+    """``config_from_json(PCW_CFG)`` as it stands (reference Prince-Dormand
+    propagation, full covariance) at full width: the card's run of B = 2
+    against the CPU's, poses within ``chip_smoke``'s FULL_PATH_TOL, counts
+    equal, no Cholesky kernel launched (the dense form solves with
+    ``cholesky_ex``/``cholesky_solve``)."""
+    from chip_smoke import COUNT_FIELDS, FULL_PATH_TOL, default_config
+    from xivo_tpu_torch.runner import run_batch
+    cfg = default_config()
+    before = {k.name: k.launches for k in lc.KERNELS + chol.KERNELS}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        s, fib, _ = make_run(cfg, torch, dev, 2, frames=4)
+        outs[dev] = run_batch(cfg, s, fib)[1]
+    dpos = float((outs["cuda"].Tsb.cpu() - outs["cpu"].Tsb).abs().max())
+    assert dpos < FULL_PATH_TOL, dpos
+    for name in COUNT_FIELDS:
+        assert torch.equal(getattr(outs["cuda"], name).cpu(),
+                           getattr(outs["cpu"], name)), name
+    assert {k.name: k.launches for k in lc.KERNELS + chol.KERNELS} == before
+
+
+def test_default_filter_run_never_waits_and_finishes_every_interval(cuda):
+    """The default filter's frame loop under the sync debug mode, its
+    substep counters read once after it: no interval left unfinished at
+    the fitted cap; with a cap below it the runner raises."""
+    import dataclasses
+    from chip_smoke import default_config
+    from xivo_tpu_torch.filter import propagate
+    from xivo_tpu_torch.runner import run_batch
+    cfg = default_config(sim_initialize_depths=True)
+    s, fib, _ = make_run(cfg, torch, "cuda", 2, frames=6)
+    run_batch(cfg, s, fib)                   # makes the device constants
+    torch.cuda.synchronize()
+    propagate.reset_substep_counts("cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, out = run_batch(cfg, s, fib, check=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    unfinished, most = propagate.substep_counts("cuda")
+    assert int(unfinished) == 0 and 0 < int(most) <= cfg.max_substeps
+    assert bool(torch.isfinite(out.Tsb).all())
+    with pytest.raises(RuntimeError, match="left unfinished"):
+        run_batch(dataclasses.replace(cfg, max_substeps=int(most) - 1), s,
+                  fib)
 
 
 def lk_inputs(B=4, N=128, levels=4):

@@ -268,7 +268,8 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     ({"use_OOS": True, "use_oc_meas": True}, "A.16"),
     ("use_depth_opt", "A.16"), ("use_1pt_RANSAC", "A.16"),
     ("use_huber", "A.16"), ("use_oc", "A.16"),
-    ("online_camera_calib", "A.16"), (("fast_substeps", 0), "A.16a"),
+    ("online_camera_calib", "A.16"),
+    ({"propagation_mode": "batched", "covariance_form": "full"}, "A.16"),
     ("do_outlier_rejection", "A.12"),
     (("tracker_type", "MATCH"), "A.12"), (("detector", "GFTT"), "A.12"),
     (("descriptor_type", "orb"), "A.12"), (("cam_model", "equi"), "A.12")])

@@ -7,11 +7,11 @@ extrinsics and group-pose estimates o, so to first order dx = J do + noise
 with J = -(Hx^T W Hx)^-1 Hx^T W Ho over its stored observations. Admitting
 features then applies the congruence P' = [[I], [J]] P [[I], [J]]^T (plus
 the subfilter blocks already placed), which on the square-root factor is
-a plain row transform: the new feature rows gain J S[o-rows]. Only that
-factor branch is ported; the dense-form branches come with the full
-covariance form (ROADMAP A.16), which ``state.check_supported`` refuses.
-Online camera calibration is refused too, so the intrinsics columns of M
-are zero here.
+a plain row transform: the new feature rows gain J S[o-rows]. On a dense
+P the rows and columns gain J P[o, :] and the new-new blocks
+J_i P_oo J_j^T, then P is symmetrized. Online camera calibration is
+refused (``state.check_supported``), so the intrinsics columns of M are
+zero here.
 """
 from __future__ import annotations
 
@@ -222,28 +222,36 @@ def _o_indices(G: int):
 
 def add_init_correlations(cfg: VIOConfig, s: VIOState, new_slot_mask,
                           row_of_slot) -> VIOState:
-    """Augment the factor with the exact first-order correlations of the
-    slots admitted this frame (new_slot_mask, row_of_slot (B, F)).
+    """Augment P with the exact first-order correlations of the slots
+    admitted this frame (new_slot_mask, row_of_slot (B, F)).
 
     With ``cfg.init_corr_chunk`` = A in (0, F) the cohort is compacted
     and processed A slots at a time. The reference loops over the
     data-dependent number of chunks ceil(count / A); here all ceil(F / A)
-    chunks run and a chunk past a sequence's count has no valid slot, so
-    its J is exactly zero and it adds exactly zero: the same result with
-    no host sync. Chunking is exact because a chunk writes only feature
-    rows of the factor, and J and the o-rows it reads are not those."""
+    chunks run, and a chunk past a sequence's count has no valid slot: its
+    J is exactly zero, so it adds exactly zero to a factor, and a dense P
+    keeps its value there (the chunk's symmetrization is skipped). The same
+    result with no host sync. Chunking is exact: on a factor a chunk writes
+    only feature rows, which neither J nor the o-rows read; on a dense P
+    each chunk re-reads the o-rows, whose feature columns then hold the
+    earlier chunks' cross terms. A sequence with no new slot keeps a dense
+    P as it was (the reference skips the pass under a cond)."""
     d = cfg.dims
     F, G = d.n_features, d.n_groups
-    fb = d.feature_begin
     dtype = s.P.dtype
     B = s.P.shape[0]
+    dense = s.P.shape[-1] == s.P.shape[-2]
     oidx = constant(_o_indices(G), torch.int64, s.P.device)
-    P_o = s.P[:, oidx]                                       # (B, K, Dc)
     use0 = new_slot_mask & (row_of_slot >= 0)
     A = int(cfg.init_corr_chunk)
     if A <= 0 or A >= F:
         Jf = _init_jacobians(cfg, s, row_of_slot, use0)      # (B, F, 3, K)
-        return _apply_congruence_full(cfg, s, Jf, P_o)
+        C, X = _congruence_terms(s.P, Jf, oidx)
+        P = _apply_congruence(cfg, s.P, C, X)
+        if dense:
+            P = torch.where(torch.any(new_slot_mask, -1)[:, None, None], P,
+                            s.P)
+        return s._replace(P=P)
 
     ar = torch.arange(F, device=s.P.device)
     order = torch.cumsum(use0.to(torch.int64), -1) - 1
@@ -259,17 +267,44 @@ def add_init_correlations(cfg: VIOConfig, s: VIOState, new_slot_mask,
         rows = take_rows(row_of_slot, slotc)                 # (B, A)
         valid = (slot >= 0) & (rows >= 0)
         Jf = _init_jacobians(cfg, s, rows, valid)            # (B, A, 3, K)
-        C = Jf @ P_o[:, None]                                # (B, A, 3, Dc)
+        C, X = _congruence_terms(P, Jf, oidx)
         ohp = ((slotc[:, None, :] == ar[:, None]) & valid[:, None, :]).to(
             dtype)                                           # (B, F, A)
-        Cf = torch.einsum("bfa,baid->bfid", ohp, C).reshape(B, 3 * F, -1)
-        P = torch.cat([P[:, :fb], P[:, fb:] + Cf], dim=1)
+        Cf = torch.einsum("bfa,baid->bfid", ohp, C)
+        if dense:
+            X = torch.einsum("bfa,baicj->bficj", ohp, X)
+            X = torch.einsum("bgc,bficj->bfigj", ohp, X)
+            P = torch.where((c * A < count)[:, :, None],
+                            _apply_congruence(cfg, P, Cf, X), P)
+        else:
+            P = _apply_congruence(cfg, P, Cf, None)
     return s._replace(P=P)
 
 
-def _apply_congruence_full(cfg: VIOConfig, s: VIOState, Jf, P_o):
-    """The factor form of the congruence: new feature rows += J S[o]."""
+def _congruence_terms(P, Jf, oidx):
+    """For Jf (B, n, 3, K): the cross rows C = J P[o, :] (B, n, 3, Dc)
+    and, on a dense P, the pairwise blocks J_i P_oo J_j^T
+    (B, n, 3, n, 3), else None."""
+    P_o = P[:, oidx]                                         # (B, K, Dc)
+    C = Jf @ P_o[:, None]
+    if P.shape[-1] != P.shape[-2]:
+        return C, None
+    Q = Jf @ P_o[:, None, :, oidx]
+    return C, torch.einsum("bfil,bgjl->bfigj", Q, Jf)
+
+
+def _apply_congruence(cfg: VIOConfig, P, C, X):
+    """The congruence from its terms for all F slots (C (B, F, 3, Dc), X
+    (B, F, 3, F, 3)): on a factor the new feature rows gain C; on a dense
+    P the feature rows gain C, the feature columns C^T and the feature
+    block X, and P is symmetrized."""
     fb = cfg.dims.feature_begin
-    C = (Jf @ P_o[:, None]).reshape(s.P.shape[0], 3 * cfg.dims.n_features,
-                                    -1)
-    return s._replace(P=torch.cat([s.P[:, :fb], s.P[:, fb:] + C], dim=1))
+    B = P.shape[0]
+    C = C.reshape(B, 3 * cfg.dims.n_features, -1)
+    if P.shape[-1] != P.shape[-2]:
+        return torch.cat([P[:, :fb], P[:, fb:] + C], dim=1)
+    P = P.clone()
+    P[:, fb:, :] += C
+    P[:, :, fb:] += C.transpose(-1, -2)
+    P[:, fb:, fb:] += X.reshape(B, C.shape[1], C.shape[1])
+    return 0.5 * (P + P.transpose(-1, -2))

@@ -6,11 +6,13 @@ their multi-view geometry in one joint update: each candidate's (2G, D)
 Jacobian over the instate group slots is projected onto the left
 nullspace of its landmark Jacobian by three closed-form Householder
 reflectors (the reference's sweep and sign rule, so that the rows match
-it, not a QR), and every surviving row joins one square-root update with
-R = oos_meas_std^2. A stack taller than ``compression_trigger_ratio`` x D
-is first compressed by one masked Cholesky (kernel B1 at (D + 1)^2) of its
-bordered Gram. ``use_oc_meas``, which would project these rows too, is
-refused with the other filter options (``state.check_supported``).
+it, not a QR), and every surviving row joins one update with
+R = oos_meas_std^2: a factor downdate on the square-root form, a Joseph
+update on the dense form. A stack taller than
+``compression_trigger_ratio`` x D is first compressed, in either form, by
+one masked Cholesky (kernel B1 at (D + 1)^2) of its bordered Gram.
+``use_oc_meas``, which would project these rows too, is refused with the
+other filter options (``state.check_supported``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from .features import project_persp, unproject_logz
 from .propagate import mv
 from .sqrt_form import sqrt_update
 from .state import VIOState, where_state
-from .update import absorb_error
+from .update import absorb_error, joseph_rows
 
 
 def _householder_nullspace(Hf, Hx, inn):
@@ -295,9 +297,12 @@ def oos_update(cfg: VIOConfig, s: VIOState, candidate_rows):
         Hm = Hm * rv[..., None].to(dtype)
         innm = innm * rv.to(dtype)
 
-    # rows here are single, not 2-row feature pairs: sqrt_update masks
+    # rows here are single, not 2-row feature pairs: both updates mask
     # each row on its own
-    err, P = sqrt_update(s.P, Hm, innm, diagRm, rv)
+    if s.P.shape[-1] == s.P.shape[-2]:
+        err, P = joseph_rows(s.P, Hm, innm, diagRm, rv)
+    else:
+        err, P = sqrt_update(s.P, Hm, innm, diagRm, rv)
     do = torch.any(rv, dim=-1)
     err = torch.where(do[:, None], err, 0.0)
     P = where_state(do, P, s.P)

@@ -53,6 +53,13 @@ def factor_diag(S):
     return torch.sum(S * S, dim=-1)
 
 
+def cov_diag(P):
+    """diag(P) of a dense P or of a factor's S S^T."""
+    if P.shape[-1] == P.shape[-2]:
+        return torch.diagonal(P, dim1=-2, dim2=-1)
+    return factor_diag(P)
+
+
 def factor_innovation_blocks(S, H):
     """Per-feature 2x2 blocks of H P H^T: H (B, 2F, D) -> (S00, S01, S11),
     each (B, F)."""

@@ -107,7 +107,8 @@ class FeatureTable(NamedTuple):
 class VIOState(NamedTuple):
     X: MotionState
     cam: torch.Tensor        # (B,9) camera intrinsics estimate
-    P: torch.Tensor          # (B,D,D+3F) square-root factor, P = S S^T
+    P: torch.Tensor          # (B,D,D) covariance, or (B,D,D+3F) factor S
+    #                          with P = S S^T (covariance_form "sqrt")
     features: FeatureTable
     groups: GroupTable
     g2row: torch.Tensor      # (B,n_groups) EKF slot -> group row, -1 free
@@ -135,15 +136,10 @@ def torch_dtype(cfg: VIOConfig) -> torch.dtype:
 def check_supported(cfg: VIOConfig):
     """Raise on configurations whose code paths are not ported yet, naming
     the ROADMAP.md item (queue A) that brings each."""
-    if cfg.covariance_form != "sqrt" or cfg.propagation_mode != "fast":
+    if cfg.propagation_mode == "batched":
         raise NotImplementedError(
-            "xivo_tpu_torch runs covariance_form='sqrt' with "
-            "propagation_mode='fast'; the full covariance form and the "
-            "reference/batched propagation come with ROADMAP A.16")
-    if cfg.fast_substeps <= 0:
-        raise NotImplementedError(
-            f"fast_substeps={cfg.fast_substeps}: the reference's adaptive "
-            "propagation loop at fast_substeps <= 0 comes with ROADMAP A.16a")
+            "propagation_mode='batched' (the reference's "
+            "propagate_batched.py) comes with ROADMAP A.16b")
     if cfg.online_camera_calib:
         raise NotImplementedError(
             "online camera calibration comes with ROADMAP A.16")
@@ -208,8 +204,12 @@ def init_state(cfg: VIOConfig, device="cuda") -> VIOState:
     if cfg.online_imu_calib:
         stds[layout.CG:layout.CG + 9] = cfg.P_Cg
         stds[layout.CA:layout.CA + 6] = cfg.P_Ca
-    from .sqrt_form import slack_cols
-    P = t(np.pad(np.diag(stds), ((0, 0), (0, slack_cols(d)))))
+    if cfg.covariance_form == "sqrt":
+        # factor P = S S^T: the diagonal factor plus the slack workspace
+        from .sqrt_form import slack_cols
+        P = t(np.pad(np.diag(stds), ((0, 0), (0, slack_cols(d)))))
+    else:
+        P = t(np.diag(stds ** 2))
 
     _, intrin, _ = cam_mod.intrinsics_from_cfg(
         dict(model=cfg.cam_model, rows=int(cfg.cam_params[0]),

@@ -23,9 +23,9 @@ from ..cam import models as cam_mod
 from ..filter import layout as L
 from ..filter.config import VIOConfig
 from ..filter.features import project_persp, unproject_logz
-from ..filter.sqrt_form import factor_innovation_blocks
 from ..filter.state import VIOState, where_state
-from ..filter.update import absorb_error, measurement_update
+from ..filter.update import (absorb_error, innovation_blocks,
+                             measurement_update)
 from ..geom import so3
 from ..ops.dense import constant, take_rows
 from ..ops import hamming
@@ -281,7 +281,7 @@ def close_loop(cfg: VIOConfig, s: VIOState, ms: MapState, uniforms,
     rv = use & front
     if cfg.lc_MH_thresh > 0:
         # chi-square gate on each closure's 2x2 innovation
-        b00, b01, b11 = factor_innovation_blocks(s.P, H)
+        b00, b01, b11 = innovation_blocks(s.P, H)
         S00 = b00 + diagR[:, 0::2]
         S01 = b01
         S11 = b11 + diagR[:, 1::2]
@@ -313,8 +313,14 @@ def retire_features(cfg: VIOConfig, s: VIOState, ms: MapState,
     B = s.P.shape[0]
     grow = torch.clamp(fr.ref, 0, NG - 1)
 
-    rows3 = s.P[:, fb:fb + 3 * F].reshape(B, F, 3, -1)
-    blocks = rows3 @ rows3.transpose(-1, -2)                  # (B,F,3,3)
+    if s.P.shape[-1] == s.P.shape[-2]:
+        # the diagonal 3x3 blocks of the dense feature block
+        blocks = torch.diagonal(
+            s.P[:, fb:fb + 3 * F, fb:fb + 3 * F].reshape(B, F, 3, F, 3),
+            dim1=1, dim2=3).permute(0, 3, 1, 2)
+    else:
+        rows3 = s.P[:, fb:fb + 3 * F].reshape(B, F, 3, -1)
+        blocks = rows3 @ rows3.transpose(-1, -2)              # (B,F,3,3)
     Pblk = take_rows(blocks, torch.clamp(fr.sind, 0, F - 1))
     Pblk = torch.where((fr.sind >= 0)[..., None, None], Pblk,
                        fr.Psub.to(Pblk.dtype))

@@ -9,15 +9,23 @@ over ``vio_frame_image``; ``run_batch_mapped`` and
 with a map per sequence (``batch_maps``), drawing each frame's RANSAC
 uniforms on the device from a seeded ``torch.Generator``. The loops read
 nothing back to the host until the last frame has been enqueued.
+
+Where the config propagates through the capped substep loops
+(``propagate.uses_substep_loop``), each runner zeroes the loops' device
+counters before its first frame and, unless called with ``check=False``,
+reads them once after its last and raises if the cap left an interval
+unfinished. ``fit_substeps`` sizes the cap from a packed stream.
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .filter import propagate
 from .filter.config import VIOConfig
 from .filter.pipeline import StepOutputs, vio_frame
 from .filter.state import VIOState, init_state, tree_map
@@ -123,36 +131,87 @@ def batch_frontend_states(cfg: VIOConfig, B: int,
         initialized=fes.initialized.expand(B).clone())
 
 
-def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs):
+def _fixed_substeps(dt, h0, dtype) -> int:
+    """Substeps of the fixed-step loop (h0, the half-step trick) over one
+    interval dt, in the arithmetic of `dtype`, as the device runs it."""
+    dt, h0c, total, n = dtype(dt), dtype(h0), dtype(0), 0
+    lo, hi, half = dtype(h0), dtype(1.5 * h0), dtype(0.5 * h0)
+    while total < dt:
+        rem = dtype(dt - total)
+        h = half if lo < rem < hi else min(h0c, rem)
+        total, n = dtype(total + h), n + 1
+    return n
+
+
+def fit_substeps(cfg: VIOConfig, fis) -> VIOConfig:
+    """cfg with ``max_substeps`` sized to a packed host stream (numpy
+    ``FrameInputs`` or ``ImageInputs``, any leading axes): the most
+    substeps the fixed-step loops take over any of its IMU intervals or
+    frame segments (one more with online temporal calibration, whose
+    frame segment moves with the td estimate). Adaptive Prince-Dormand
+    steps depend on the data, so such a config keeps its ``max_substeps``;
+    configs that take no loop are returned as they are."""
+    if not propagate.uses_substep_loop(cfg) or (
+            cfg.propagation_mode == "reference" and cfg.pd_control_stepsize
+            and cfg.integration_method == "PrinceDormand"):
+        return cfg
+    dts = np.concatenate([np.ravel(fis.imu_dt), np.ravel(fis.frame_dt)])
+    dtype = np.result_type(dts.dtype, np.dtype(cfg.dtype)).type
+    n = max((_fixed_substeps(dt, cfg.stepsize, dtype)
+             for dt in np.unique(dts[dts > 0])), default=1)
+    return dataclasses.replace(
+        cfg, max_substeps=n + int(bool(cfg.online_temporal_calib)))
+
+
+def _checked(cfg: VIOConfig, device, check: bool, loop):
+    """Run loop() with the substep counters of `device` zeroed first and,
+    with `check`, read after it (see the module docstring)."""
+    if not propagate.uses_substep_loop(cfg):
+        return loop()
+    propagate.reset_substep_counts(device)
+    out = loop()
+    if check:
+        propagate.check_substeps(device)
+    return out
+
+
+def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs,
+              check: bool = True):
     """Run B sequences of T frames. fis: (B, T, ...) tensors on the
     states' device. Returns (final state, StepOutputs stacked (B, T, ...))."""
-    s = states
-    outs = []
-    for t in range(fis.frame_dt.shape[1]):
-        s, out = vio_frame(cfg, s, *(a[:, t] for a in fis))
-        outs.append(out)
-    return s, _stack(outs)
+    def loop():
+        s = states
+        outs = []
+        for t in range(fis.frame_dt.shape[1]):
+            s, out = vio_frame(cfg, s, *(a[:, t] for a in fis))
+            outs.append(out)
+        return s, _stack(outs)
+    return _checked(cfg, states.P.device, check, loop)
 
 
 def make_batch_runner(cfg: VIOConfig):
     """(states, FrameInputs) -> (states, StepOutputs), the reference's
-    runner signature; host inputs are moved to the states' device."""
+    runner signature; host inputs are moved to the states' device and the
+    substep cap is sized to them (``fit_substeps``)."""
     def run(states: VIOState, fis: FrameInputs):
-        return run_batch(cfg, states, inputs_to_device(fis, states.P.device))
+        return run_batch(fit_substeps(cfg, fis), states,
+                         inputs_to_device(fis, states.P.device))
     return run
 
 
 def run_batch_image(cfg: VIOConfig, states: VIOState, fes: FrontendState,
-                    fis: ImageInputs):
+                    fis: ImageInputs, check: bool = True):
     """Run B image-mode sequences of T frames. fis: (B, T, ...) tensors on
     the states' device. Returns (final state, final front-end state,
     StepOutputs stacked (B, T, ...))."""
-    s = states
-    outs = []
-    for t in range(fis.frame_dt.shape[1]):
-        s, fes, out = vio_frame_image(cfg, s, fes, *(a[:, t] for a in fis))
-        outs.append(out)
-    return s, fes, _stack(outs)
+    def loop():
+        s, f = states, fes
+        outs = []
+        for t in range(fis.frame_dt.shape[1]):
+            s, f, out = vio_frame_image(cfg, s, f, *(a[:, t] for a in fis))
+            outs.append(out)
+        return s, f, _stack(outs)
+    return _checked(cfg, states.P.device, check, loop)
 
 
 def _draws(cfg: VIOConfig, s: VIOState, uniforms, seed: int):
@@ -172,32 +231,37 @@ def _stack(outs):
     return StepOutputs(*(torch.stack(o, dim=1) for o in zip(*outs)))
 
 
-def _run_mapped(step, carry, fis, draw):
+def _run_mapped(cfg, step, carry, fis, draw, check):
     """The mapped frame loop: ``step(*carry, *inputs of frame t, draws)``
     returns (*carry, StepOutputs, closure rows) for every frame t."""
-    outs, lcs = [], []
-    for t in range(fis.frame_dt.shape[1]):
-        *carry, out, n_lc = step(*carry, *(a[:, t] for a in fis), draw(t))
-        outs.append(out)
-        lcs.append(n_lc)
-    return (*carry, _stack(outs), torch.stack(lcs, dim=1))
+    def loop():
+        c = carry
+        outs, lcs = [], []
+        for t in range(fis.frame_dt.shape[1]):
+            *c, out, n_lc = step(*c, *(a[:, t] for a in fis), draw(t))
+            outs.append(out)
+            lcs.append(n_lc)
+        return (*c, _stack(outs), torch.stack(lcs, dim=1))
+    return _checked(cfg, carry[0].P.device, check, loop)
 
 
 def run_batch_mapped(cfg: VIOConfig, states: VIOState, maps: MapState,
-                     fis: FrameInputs, seed: int = 0, uniforms=None):
+                     fis: FrameInputs, seed: int = 0, uniforms=None,
+                     check: bool = True):
     """Run B mapped sequences of T frames (``vio_frame_mapped``). fis:
     (B, T, ...) tensors on the states' device; ``uniforms`` (B, T, n_hyps,
     F), if given, replaces the seeded draws. Returns (final state, final
     map, StepOutputs stacked (B, T, ...), closure rows (B, T))."""
-    return _run_mapped(partial(vio_frame_mapped, cfg), (states, maps), fis,
-                       _draws(cfg, states, uniforms, seed))
+    return _run_mapped(cfg, partial(vio_frame_mapped, cfg), (states, maps),
+                       fis, _draws(cfg, states, uniforms, seed), check)
 
 
 def run_batch_image_mapped(cfg: VIOConfig, states: VIOState,
                            fes: FrontendState, maps: MapState,
-                           fis: ImageInputs, seed: int = 0, uniforms=None):
+                           fis: ImageInputs, seed: int = 0, uniforms=None,
+                           check: bool = True):
     """``run_batch_mapped`` for image mode (``vio_frame_image_mapped``).
     Returns (state, front-end state, map, StepOutputs, closure rows)."""
-    return _run_mapped(partial(vio_frame_image_mapped, cfg),
+    return _run_mapped(cfg, partial(vio_frame_image_mapped, cfg),
                        (states, fes, maps), fis,
-                       _draws(cfg, states, uniforms, seed))
+                       _draws(cfg, states, uniforms, seed), check)
