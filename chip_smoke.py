@@ -140,8 +140,45 @@ Joseph updates; phases 20-22 run right after phase 19):
    frames, counted: B1 once a frame (the bordered Gram at 229; B2, B3
    never), held against its plain version by its backward error on the
    inputs of the frames with OOS rows, as phase 19 does.
-Phase 9 also profiles ten frames of phase 21's path (frames 30-39), with
-the IMU-sample updates and the Joseph updates among its stages.
+slice 11, the shipped TUM-VI configs (the equidistant lens, homography
+outlier rejection; phases 23-26 run right after phase 8):
+23. check the CUDA image path of ``cfg/tumvi_cam0.json`` with nothing
+   overridden (float32, 512 x 512, Dims(nf_rows=256, ng_rows=128), D =
+   228, reference propagation, full covariance) against its CPU path on
+   the stream rendered through its lens at B = 2, with the same
+   homography draws on both: 10 frames of the config as shipped, 20
+   with the default admission gate (features in the state from frame ~3
+   on), and 10 of the config as shipped with outliers planted (the
+   image's left 80 columns moved 8 px down in frames 5 and 6, so that the
+   tracks there leave the homography of the rest in frame 5 and come back
+   in frame 7); each CUDA run under the sync debug mode, after a first
+   one that fills the port's cache of device constants; poses within
+   1e-3 m, equal track, in-state feature and rejection counts, and with
+   the planted outliers rejections in frame 5 on both devices;
+24. run it at full width: B = 16 sequences of the 120-frame stream,
+   counters at 0 and the sync debug mode on; require finite poses, the
+   image path's accuracy bounds on sequence 0 (phase 8's), 4 launches of
+   B4 and B5 a frame and none of B1-B3, B6, B7; print the throughput,
+   peak memory and the rejection totals; then hold B4 and B5 against
+   their plain versions on the inputs of its first frames (256-row track
+   tables) and time them;
+25. the equidistant image bench variant (``bench.py``'s, IMG_BENCH_CFG
+   through ``EQUIDISTANT_512_CAM``, fast propagation, the square-root
+   form) at B = 16 over the 120-frame stream rendered through that lens,
+   counted: finite poses, 1 launch of B1-B3 and 4 of B4 and B5 a frame;
+26. check the CUDA path of ``cfg/tumvi_cam0_accuracy.json`` (OOS updates,
+   pose cloning, FEJ, in the full form) against its CPU path at B = 2 for
+   TUMVI_ACC_FRAMES frames, as shipped, the same draws on both (the
+   CUDA run as in phase 23): poses
+   within 1e-3 m, OOS rows applied, and the OOS rows, in-state groups
+   and features, OOS drops and rejections equal frame by frame (phase
+   17's rule); B4 and B5 4 launches a frame, B2, B3, B6 and B7 none, B1
+   at most one (at 229, when compression fires).
+Phase 9 also profiles five frames of phase 21's path (frames 30-34), with
+the IMU-sample updates and the Joseph updates among its stages, and times
+five frames of phase 24's (frames 30-34) with a synchronize around each
+stage, among them ``unproject``'s Newton steps and the homography RANSAC
+(with each one's launches a call, and a whole frame step's).
 
 Each kernel's entry in the JSON line carries its launches on every
 path (B7's ``launches`` are the profile's; 0 on the filter paths). The
@@ -149,6 +186,7 @@ last lines are the kernels' JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
 exits 1.
 """
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -263,10 +301,22 @@ ACC_ATE_FACTOR, ACC_ATE_FLOOR = 1.25, 0.015
 # simulation, as the reference's bound test runs the config
 # (tests/test_e2e_pcw.py:34-44); the accuracy config in the full form with
 # compression forced for FULL_COMPRESS_FRAMES frames
-FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES = 10, 20
+FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES, FULL_PROFILE_FRAMES = 10, 20, 5
 FULL_PATH_TOL = 1e-3
 COUNT_FIELDS = ("num_instate_features", "num_instate_groups", "num_tracked",
                 "num_mh_rejected", "num_oos_dropped")
+# slice 11: the shipped TUM-VI configs on the image stream rendered through
+# their lens; CUDA against CPU on B = 2 (the config as shipped for
+# TUMVI_CMP_FRAMES, the default admission gate for TUMVI_CMP_OPEN_FRAMES),
+# the main run at IMG_B over the whole stream; the planted outliers: the
+# left TUMVI_PLANT_COLS columns moved TUMVI_PLANT_PX px down in frames
+# TUMVI_PLANT_FRAMES
+TUMVI_PLANT_COLS, TUMVI_PLANT_PX, TUMVI_PLANT_FRAMES = 80, 8, (5, 6)
+TUMVI_CFGS = ("cfg/tumvi_cam0.json", "cfg/tumvi_cam0_accuracy.json")
+TUMVI_CMP_FRAMES, TUMVI_CMP_OPEN_FRAMES, TUMVI_ACC_FRAMES = 10, 20, 20
+TUMVI_CAPTURE_FRAMES = 3
+TUMVI_COUNTS = ("num_tracked", "num_instate_features", "num_instate_groups",
+                "num_oos_dropped", "num_tracker_outlier_rejected")
 # B6's bound by operations: the least work a (query, entry) pair's
 # distance needs, whatever the kernel does. 8 XORs; carry-save adders
 # (a sum and a carry, one 3-input logic operation each) over seven of the
@@ -1084,15 +1134,19 @@ def breakdown_phase(torch, pcw_cfg, mapped, full_cfg):
                      (pipeline, "tracker_pointcloud"),
                      (pipeline, "update_step")], n)
 
-    s, fib, _ = make_run(full_cfg, torch, DEV, B, frames=b)
+    # the default filter's window is FULL_PROFILE_FRAMES long: its
+    # ~37,600 launches a step make the profiler's table slow to read
+    fb = a + FULL_PROFILE_FRAMES
+    s, fib, _ = make_run(full_cfg, torch, DEV, B, frames=fb)
     s, _ = run_batch(full_cfg, s, type(fib)(*(x[:, :a] for x in fib)))
-    win = type(fib)(*(x[:, a:b] for x in fib))
+    win = type(fib)(*(x[:, a:fb] for x in fib))
     where_time_goes(torch, f"default filter B={B}",
                     lambda: run_batch(full_cfg, s, win),
                     [(pipeline, "propagate_frame"),
                      (pipeline, "imu_sample_update"),
                      (pipeline, "tracker_pointcloud"),
-                     (pipeline, "update_step"), (update, "joseph_rows")], n)
+                     (pipeline, "update_step"), (update, "joseph_rows")],
+                    FULL_PROFILE_FRAMES)
     del s, win
 
     cfg = image_config()
@@ -1883,6 +1937,305 @@ def full_form_phases(torch, lc, chol):
     return launches, claunches, check, cfg
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the shipped TUM-VI configs (equidistant lens, homography
+# outlier rejection) and the equidistant image bench variant
+# ---------------------------------------------------------------------------
+
+def tumvi_config(path=TUMVI_CFGS[0]):
+    """The shipped config at `path` (``config_from_json`` of the file), its
+    substep cap sized to its image stream, and that stream (rendered
+    through the config's lens)."""
+    from xivo_tpu_torch.filter.config import (config_from_json,
+                                              load_json_with_comments)
+    from xivo_tpu_torch.runner import fit_substeps
+    from xivo_tpu_torch.sim.image_stream import build_image_stream
+    cfg = config_from_json(load_json_with_comments(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), path)))
+    stream = build_image_stream(cfg)
+    return fit_substeps(cfg, stream[0]), stream
+
+
+def hom_draws(torch, cfg, batch, frames, seed=0):
+    """Homography draws (B, T, N_HYPS, NF) in the config's dtype, made on
+    the host, for two devices to share."""
+    from xivo_tpu_torch.frontend.homography import N_HYPS
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.random((batch, frames, N_HYPS,
+                                    cfg.dims.nf_rows)),
+                        dtype=getattr(torch, cfg.dtype))
+
+
+def compare_image_devices(torch, label, cfg, stream, frames, oos=None,
+                          kernels=()):
+    """The CUDA image path of `cfg` against its CPU path on B = 2 for
+    `frames` frames with the same homography draws: poses within
+    IMG_PATH_TOL and the TUMVI_COUNTS (and, with `oos`, the OOS rows)
+    equal frame by frame. Returns the CUDA run's launches of `kernels`."""
+    from xivo_tpu_torch.filter import propagate
+    from xivo_tpu_torch.runner import run_batch_image
+    draws = hom_draws(torch, cfg, 2, frames)
+    res, launches = {}, None
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        s, f, fib = make_image_run(cfg, torch, dev, 2, stream, frames=frames)
+        hom = draws.to(dev)
+
+        def run(check):
+            return run_batch_image(cfg, s, f, fib, check=check,
+                                   hom_uniforms=hom)[2]
+        if dev == DEV:
+            # a first run fills ops.dense.constant's cache (each new
+            # constant's upload waits for the device once)
+            run(True)
+            s, f, fib = make_image_run(cfg, torch, dev, 2, stream,
+                                       frames=frames)
+        rec = None if oos is None else OosRows(oos)
+        with rec or contextlib.nullcontext():
+            if dev == DEV:
+                # the frame loop under the sync debug mode, the substep
+                # counters read after it
+                out, _, launches = counted(torch, kernels,
+                                           lambda: run(False))
+                propagate.check_substeps(DEV)
+            else:
+                out = run(True)
+        res[dev] = (out, None if rec is None else rec.per_frame())
+        print(f"{label} {dev} path: {frames} frames in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    (og, rg), (oc, rc) = res[DEV], res["cpu"]
+    dpos = float((og.Tsb.cpu() - oc.Tsb).abs().max())
+    same = rg is None or bool((rg == rc).all())
+    for name in TUMVI_COUNTS:
+        x, y = getattr(og, name).cpu(), getattr(oc, name)
+        same &= torch.equal(x, y)
+        print(f"{label} cuda vs cpu path: {name} cuda {x[0].tolist()} cpu "
+              f"{y[0].tolist()}", flush=True)
+    if rg is not None:
+        print(f"{label} cuda vs cpu path: OOS rows of sequence 0 cuda "
+              f"{rg[0].tolist()} cpu {rc[0].tolist()}", flush=True)
+    print(f"{label} cuda vs cpu path, {frames} frames: max |dTsb| "
+          f"{dpos:.3e} m; counts {'equal' if same else 'DIFFER'}",
+          flush=True)
+    if not (dpos < IMG_PATH_TOL and same):
+        raise AssertionError(f"the CUDA path disagrees with the CPU path "
+                             f"({label})")
+    return launches, rg, og
+
+
+def tumvi_phases(torch, lc, lko, others):
+    """Phases 23-24: ``cfg/tumvi_cam0.json`` on the CUDA and CPU paths, then
+    at full width, counted. Returns the B4-B5 checks at the config's shapes,
+    the main run's launches, and (config, states and inputs before phase
+    9's window, the window) for the stage times."""
+    from xivo_tpu_torch.filter import propagate
+    from xivo_tpu_torch.runner import run_batch_image
+    cfg, stream = tumvi_config()
+    assert (cfg.dims.full, cfg.dims.nf_rows, cfg.dtype, cfg.cam_model,
+            cfg.propagation_mode, cfg.covariance_form,
+            cfg.do_outlier_rejection, tuple(cfg.cam_params[:2])) == (
+        228, 256, "float32", "equidistant", "reference", "full", True,
+        (512, 512))
+    kernels = lc.KERNELS + lko.KERNELS + others
+
+    # phase 23: CUDA against CPU, as shipped, with the gate open, and with
+    # outliers planted
+    open_cfg = dataclasses.replace(cfg, max_depth_var_for_admission=np.inf)
+    for label, c, frames in (("tumvi as shipped", cfg, TUMVI_CMP_FRAMES),
+                             ("tumvi default admission gate", open_cfg,
+                              TUMVI_CMP_OPEN_FRAMES)):
+        compare_image_devices(torch, label, c, stream, frames)
+    fi, gt = stream
+    image = fi.image.copy()
+    rows = slice(TUMVI_PLANT_FRAMES[0], TUMVI_PLANT_FRAMES[-1] + 1)
+    image[rows, TUMVI_PLANT_PX:, :TUMVI_PLANT_COLS] = \
+        image[rows, :-TUMVI_PLANT_PX, :TUMVI_PLANT_COLS]
+    _, _, out = compare_image_devices(
+        torch, "tumvi planted outliers", cfg, (fi._replace(image=image), gt),
+        TUMVI_CMP_FRAMES)
+    if not bool((out.num_tracker_outlier_rejected[
+            :, TUMVI_PLANT_FRAMES[0]] > 0).all()):
+        raise AssertionError("the planted outliers were not rejected")
+
+    # phase 24: the main run, counted; the substep counters read after it
+    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream)
+    T = int(fib.frame_dt.shape[1])
+    propagate.reset_substep_counts(DEV)
+    (s, f, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch_image(cfg, s, f, fib, check=False,
+                                                seed=1))
+    most = propagate.check_substeps(DEV)      # raises on an unfinished one
+    Tsb = outs.Tsb.cpu().numpy()
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    gt = stream[1]
+    err = np.linalg.norm(Tsb[0] - gt["Tsb"], axis=1)
+    ntr = outs.num_tracked.cpu().numpy()
+    inst = outs.num_instate_features.cpu().numpy()
+    rej = outs.num_tracker_outlier_rejected.cpu().numpy()
+    print(f"tumvi main path: B={IMG_B} T={T} 512x512 D={cfg.dims.full} "
+          f"nf_rows {cfg.dims.nf_rows} (equidistant lens, reference "
+          f"propagation, max_substeps {cfg.max_substeps}, the most an "
+          f"interval took {most}, full covariance) "
+          f"wall {wall:.3f} s sequence-frames/s {IMG_B * T / wall:.1f} "
+          f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"launches {launches}; outlier rejections {int(rej.sum())} in "
+          f"all, sequence 0 {int(rej[0].sum())}, at most "
+          f"{int(rej.max())} in a frame", flush=True)
+    print(f"tumvi main path, sequence 0: final error {err[-1]:.4f} m "
+          f"(bound {IMG_FINAL_BOUND}), median {np.median(err):.4f} m (bound "
+          f"{IMG_MEDIAN_BOUND}), RMSE {np.sqrt(np.mean(err ** 2)):.4f} m; "
+          f"tracked from frame 10 at least {int(ntr[0, 10:].min())} "
+          f"(bound {IMG_MIN_TRACKED}); features in the state from frame "
+          f"{int(np.argmax(inst[0] > 0)) if inst[0].any() else None}, "
+          f"{int(inst[0, -1])} at the end; all sequences: final error "
+          f"{np.linalg.norm(Tsb[:, -1] - gt['Tsb'][-1], axis=1).max():.4f}"
+          f" m at most", flush=True)
+    if not (err[-1] < IMG_FINAL_BOUND and np.median(err) < IMG_MEDIAN_BOUND
+            and ntr[0, 10:].min() >= IMG_MIN_TRACKED):
+        raise AssertionError("TUM-VI path outside the image path's bounds")
+    expect = {k.name: 0 for k in kernels}
+    expect.update({k.name: cfg.klt_max_level * T for k in lko.KERNELS})
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    del s, f, outs
+
+    # B4 and B5 at the config's shapes: the inputs of its first frames
+    with Recorder(torch, lko, ["sample_templates", "gn_tracks"]) as seen:
+        s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream,
+                                   frames=TUMVI_CAPTURE_FRAMES)
+        run_batch_image(cfg, s, f, fib)
+        torch.cuda.synchronize()
+    checks = check_lk_kernels(torch, lko, seen, {"sample_templates": [],
+                                                 "gn_tracks": []}, cfg)
+    del seen
+    a = PROFILE_FRAMES[0]
+    b = a + FULL_PROFILE_FRAMES
+    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream, frames=b)
+    s, f, _ = run_batch_image(cfg, s, f, type(fib)(*(x[:, :a] for x in fib)))
+    win = type(fib)(*(x[:, a:b] for x in fib))
+    return {c["name"]: c for c in checks}, launches, (cfg, (s, f), win)
+
+
+def equidistant_bench_phase(torch, kernels):
+    """Phase 25: the equidistant image bench variant, counted."""
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.filter.layout import Dims
+    from xivo_tpu_torch.runner import run_batch_image
+    from xivo_tpu_torch.sim.configs import (EQUIDISTANT_512_CAM,
+                                            IMG_BENCH_CFG, IMG_BENCH_DIMS)
+    from xivo_tpu_torch.sim.image_stream import build_image_stream
+    cfg = config_from_json(dict(IMG_BENCH_CFG,
+                                camera_cfg=dict(EQUIDISTANT_512_CAM)),
+                           dtype="float32", propagation_mode="fast",
+                           covariance_form="sqrt",
+                           dims=Dims(**IMG_BENCH_DIMS))
+    assert cfg.cam_model == "equidistant" and cfg.dims.full == 228
+    stream = build_image_stream(cfg)
+    run_batch_image(cfg, *make_image_run(cfg, torch, DEV, 2, stream,
+                                         frames=2))          # constants
+    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream)
+    T = int(fib.frame_dt.shape[1])
+    (s, f, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch_image(cfg, s, f, fib))
+    Tsb = outs.Tsb.cpu().numpy()
+    err = np.linalg.norm(Tsb[0] - stream[1]["Tsb"], axis=1)
+    print(f"equidistant image bench variant: B={IMG_B} T={T} 512x512 D="
+          f"{cfg.dims.full} wall {wall:.3f} s sequence-frames/s "
+          f"{IMG_B * T / wall:.1f} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{launches}; sequence 0: final error {err[-1]:.4f} m, median "
+          f"{np.median(err):.4f} m, tracked from frame 10 at least "
+          f"{int(outs.num_tracked[0, 10:].min())}", flush=True)
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    expect = {k.name: 0 for k in kernels}
+    expect.update({"chol_lanes": T, "chol_inv_lanes": T, "tri_inv_lanes": T,
+                   "lk_sample_templates": cfg.klt_max_level * T,
+                   "lk_gn_tracks": cfg.klt_max_level * T})
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    return launches
+
+
+def tumvi_accuracy_phase(torch, lko, kernels):
+    """Phase 26: ``cfg/tumvi_cam0_accuracy.json`` on the CUDA and CPU
+    paths. Returns the CUDA run's launches."""
+    from xivo_tpu_torch.filter import oos
+    cfg, stream = tumvi_config(TUMVI_CFGS[1])
+    assert cfg.use_OOS and cfg.covariance_form == "full"
+    T = TUMVI_ACC_FRAMES
+    label = "tumvi accuracy as shipped"
+    launches, rows, _ = compare_image_devices(torch, label, cfg, stream, T,
+                                              oos=oos, kernels=kernels)
+    print(f"{label}: cuda launches {launches}", flush=True)
+    expect = {k.name: 0 for k in kernels}
+    expect.update({k.name: cfg.klt_max_level * T for k in lko.KERNELS})
+    b1 = launches.pop("chol_lanes")
+    expect.pop("chol_lanes")
+    if launches != expect or b1 > T or rows.sum() == 0:
+        raise AssertionError(f"launches {launches}, B1 {b1}, expected "
+                             f"{expect}, B1 at most {T}; or no OOS row")
+    launches["chol_lanes"] = b1
+    return launches
+
+
+def launches_per_call(torch, fn):
+    """Kernel launches (and copies) that one call of fn makes on the card,
+    from the profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", "")))
+
+
+def tumvi_stage_times(torch, tumvi):
+    """Phase 9 for the TUM-VI path (phase 24's config, frames 30-34):
+    each stage's time with a synchronize around it, ``unproject`` and the
+    homography rejection among them, and their launches a call."""
+    from xivo_tpu_torch.cam import models as cam_models
+    from xivo_tpu_torch.frontend import tracker
+    from xivo_tpu_torch.runner import run_batch_image
+    cfg, (s, f), win = tumvi
+    n = win.frame_dt.shape[1]
+
+    def run():
+        return run_batch_image(cfg, s, f, win)
+    torch.cuda.synchronize()        # the config ran in phase 24: warm
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / n * 1e3
+    with Recorder(torch, cam_models, ["unproject"]) as up, \
+            Recorder(torch, tracker, ["reject_outliers"]) as ro:
+        run_batch_image(cfg, s, f, type(win)(*(x[:, :1] for x in win)))
+    calls = {}
+    for name, mod, seen in (("unproject", cam_models, up),
+                            ("reject_outliers", tracker, ro)):
+        args = seen[name]
+        calls[name] = (len(args), launches_per_call(
+            torch, lambda: getattr(mod, name)(*args[0])) if args else 0)
+    one = type(win)(*(x[:, :1] for x in win))
+    calls["the frame step"] = (1, launches_per_call(
+        torch, lambda: run_batch_image(cfg, s, f, one)))
+    with Timed(torch, [(tracker, "propagate_frame"),
+                       (tracker, "tracker_image"), (tracker, "track"),
+                       (tracker, "reject_outliers"),
+                       (cam_models, "unproject"),
+                       (tracker, "update_step")]) as total:
+        run()
+    print(f"tumvi B={IMG_B} time: frame step {step:.2f} ms (wall over {n} "
+          f"steps); each stage synchronized: " + ", ".join(
+              f"{k} {t / n * 1e3:.2f} ms" for k, t in total.items())
+          + " a step; " + ", ".join(
+              f"{k} {c} call(s) a frame, {l} launches a call"
+              for k, (c, l) in calls.items()), flush=True)
+
+
 def backward_use(torch, kernel, plain, inputs):
     """Worst ratio of the kernel's backward error to its limit over the
     inputs, and the plain float32 version's own worst (see BACKWARD_TOL)."""
@@ -1934,6 +2287,18 @@ def check_oos_shape(torch, name, kernel, plain, inputs, backward=False):
     return dict(max_abs_err=err, row_rel_err=rel["real"], **t)
 
 
+def slice11_phases(torch, lc, lko, hm, chol):
+    """Phases 23-26. Returns B4-B5's checks at the TUM-VI shapes, the
+    launches of phases 24, 26 and 25, and phase 24's window
+    for the stage times."""
+    others = hm.KERNELS + chol.KERNELS
+    kernels = lc.KERNELS + lko.KERNELS + others
+    checks, launches, tumvi = tumvi_phases(torch, lc, lko, others)
+    equi = equidistant_bench_phase(torch, kernels)
+    acc = tumvi_accuracy_phase(torch, lko, kernels)
+    return checks, launches, acc, equi, tumvi
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1955,7 +2320,6 @@ def main():
     t0 = time.time()
     built = build_kernels()
     print(f"build: {sorted(built)} in {time.time() - t0:.1f} s", flush=True)
-
     chol_entry = check_chol_blocked(torch, lc, chol)
     chol_entry["launches"] = profile_phase(torch, chol)
     print(f"B7 phases done: {time.time() - t_start:.1f} s", flush=True)
@@ -1969,6 +2333,9 @@ def main():
           flush=True)
     lk_kernels, img_launches = image_phases(torch, lc, lko, chol.KERNELS)
     print(f"image phases done: {time.time() - t_start:.1f} s", flush=True)
+    tumvi_checks, tumvi_launches, tumvi_acc_launches, equi_launches, \
+        tumvi = slice11_phases(torch, lc, lko, hm, chol)
+    print(f"TUM-VI phases done: {time.time() - t_start:.1f} s", flush=True)
     hm_kernel, map_launches, mcfg, before, win = mapped_phases(
         torch, lc, hm, chol.KERNELS)
     print(f"mapped phases done: {time.time() - t_start:.1f} s", flush=True)
@@ -1977,6 +2344,8 @@ def main():
         torch, lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS)
     breakdown_phase(torch, pcw_config(), (mcfg, before, win), full_cfg)
     del before
+    tumvi_stage_times(torch, tumvi)
+    del tumvi
     for k in kernels:
         k["oos_shape"] = oos_shapes[k["name"]]
         if k["name"] == "chol_lanes":
@@ -1994,6 +2363,12 @@ def main():
         k["launches_image_mapped_path"] = img_map_launches[name]
         k["launches_profile_path"] = (chol_entry["launches"]
                                       if k is chol_entry else 0)
+        k["launches_tumvi_path"] = tumvi_launches.get(name, 0)
+        k["launches_tumvi_accuracy_cmp_path"] = tumvi_acc_launches.get(
+            name, 0)
+        k["launches_equidistant_image_path"] = equi_launches.get(name, 0)
+        if name in tumvi_checks:
+            k["tumvi_shape"] = tumvi_checks[name]
     print(f"elapsed: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -46,6 +46,9 @@ The fusion of ``retire_features`` on the card against the CPU, from the
 same state and map: tables equal, positions (m) and covariances (of
 their largest entry) within ``chip_smoke``'s ``MAP_FUSE_TOL32`` in
 float32 and ``MAP_FUSE_TOL64`` in float64 (see there why they differ).
+The homography RANSAC on the card against the CPU (masks and ``ok``
+equal, no host sync), and the distorted camera models in float32 on the
+card against the CPU.
 """
 import functools
 
@@ -602,3 +605,54 @@ def test_retire_fusion_on_the_card_matches_the_cpu(cuda, dtype, tol):
     assert same
     assert int((ref.n_merged - ms.n_merged.cpu()).min()) > 0
     assert dx < tol and dcov < tol, (dx, dcov)
+
+
+def test_homography_on_the_card_matches_the_cpu(cuda):
+    """``homography_ransac`` (float32, B = 16 scenes of 256 rows with 0.5 px
+    noise, 15 % outliers moved 20-60 px, a quarter of the rows invalid)
+    gives the CPU's masks and ``ok`` on the same draws, with no host sync:
+    no residual lies near the 3 px threshold."""
+    from xivo_tpu_torch.frontend.homography import N_HYPS, homography_ransac
+    rng = np.random.default_rng(2)
+    B, N = 16, 256
+    p0 = rng.uniform(0, 512, (B, N, 2))
+    p1 = p0 * 1.01 + np.array([3.0, -2.0]) + rng.normal(0, 0.5, (B, N, 2))
+    out = rng.random((B, N)) < 0.15
+    ang = rng.uniform(0, 2 * np.pi, (B, N))
+    p1 += (out * rng.uniform(20, 60, (B, N)))[..., None] * np.stack(
+        [np.cos(ang), np.sin(ang)], -1)
+    valid = rng.random((B, N)) >= 0.25
+    u = rng.random((B, N_HYPS, N))
+    args = [torch.tensor(a, dtype=torch.float32) for a in (u, p0, p1)]
+    want = homography_ransac(*args[:3], torch.tensor(valid))
+    on_card = [a.to(cuda) for a in args] + [torch.tensor(valid, device=cuda)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = homography_ransac(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want[1].all())
+
+
+@pytest.mark.parametrize("model", ["atan", "equidistant", "radtan"])
+def test_camera_models_on_the_card_match_the_cpu(cuda, model):
+    """``project_with_jac`` and ``unproject`` in float32 on the card
+    against the CPU: the same closed forms, rounded on another device."""
+    from xivo_tpu_torch.cam import models as cam
+    cfg = {"atan": dict(w=0.936), "equidistant": dict(
+        k0=0.0034, k1=0.0007, k2=-0.0046, k3=0.0014), "radtan": dict(
+        p1=0.0007, p2=-0.0008, k1=-0.28, k2=0.07, k3=-0.005)}[model]
+    kind, intrin, _ = cam.intrinsics_from_cfg(dict(
+        model=model, rows=480, cols=640, fx=275.0, fy=274.0, cx=319.5,
+        cy=239.5, **cfg), dtype=torch.float32)
+    xc = torch.tensor(np.random.default_rng(4).uniform(-0.5, 0.5, (512, 2)),
+                      dtype=torch.float32)
+    for fn, tol in ((lambda i, x: cam.project_with_jac(kind, i, x), 2e-3),
+                    (lambda i, x: (cam.unproject(kind, i, cam.project(
+                        kind, i, x)),), 1e-5)):
+        for g, w in zip(fn(intrin.to(cuda), xc.to(cuda)), fn(intrin, xc)):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                       atol=tol)

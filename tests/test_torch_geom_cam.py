@@ -80,8 +80,3 @@ def test_pinhole_matches_reference():
     close(tcam.unproject(kind, ti, txp), xc, 1e-12)
     close(tcam.project(kind, ti, t([0.1, -0.2])),
           [275.0 * 0.1 + 319.5, 274.0 * -0.2 + 239.5])
-
-
-def test_other_camera_models_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        tcam.intrinsics_from_cfg(dict(PIN, model="radtan"))

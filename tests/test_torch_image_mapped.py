@@ -38,9 +38,12 @@ def test_vio_frame_image_mapped_matches_reference():
     fi = type(streams[0][0])(*(np.stack(x) for x in
                                zip(*[f for f, _ in streams])))
     B = len(SEEDS)
+    # next_fid as int64: the dtype the step gives it with x64 on, so that
+    # the jitted step is traced once
     js = jax_batch_states(jc, B)._replace(
         last_gyro=jnp.asarray(np.stack([g["gyro0"] for _, g in streams])),
         last_accel=jnp.asarray(np.stack([g["accel0"] for _, g in streams])))
+    js = js._replace(next_fid=js.next_fid.astype(jnp.int64))
     jf = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape).copy(),
                       jax_init_frontend(jc))
     jms = batched_map(64, B)

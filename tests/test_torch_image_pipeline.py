@@ -55,9 +55,12 @@ from xivo_tpu_torch import interop
 from xivo_tpu_torch.filter.config import config_from_json
 from xivo_tpu_torch.filter.layout import Dims
 from xivo_tpu_torch.runner import (batch_frontend_states, batch_states,
-                                   image_inputs_to_device, run_batch_image)
+                                   fit_substeps, image_inputs_to_device,
+                                   run_batch_image)
 from xivo_tpu_torch.sim.configs import IMG_CFG
 from xivo_tpu_torch.sim.image_stream import build_image_stream
+
+from test_torch_homography import tracker_draws
 
 torch.set_num_threads(2)
 TINY = (4, 8, 16, 32)        # n_groups, n_features, ng_rows, nf_rows
@@ -67,17 +70,21 @@ STREAM = dict(n_points=500, world_seed=0, imu_T=3.0)
 POS_TOL, POSE_TOL = 5e-6, 5e-7
 
 
-def image_cfgs(dtype="float64", **tracker):
-    """(reference config, port config): IMG_CFG at tiny Dims with the
-    default admission gate, tracker_cfg overridden by ``tracker``."""
+def image_cfgs(dtype="float64", raw=None, modes=None, **tracker):
+    """(reference config, port config): IMG_CFG, or the config dict `raw`,
+    at tiny Dims with the default admission gate, tracker_cfg overridden
+    by ``tracker``; `modes` are ``config_from_json``'s overrides (by
+    default fast propagation and the square-root form)."""
+    if modes is None:
+        modes = dict(propagation_mode="fast", covariance_form="sqrt")
+
     def build(base, from_json, dims):
         raw = dict(base)
         raw.pop("max_depth_var_for_admission")
         raw["tracker_cfg"] = dict(raw["tracker_cfg"], **tracker)
-        return from_json(raw, dims=dims(*TINY), dtype=dtype,
-                         propagation_mode="fast", covariance_form="sqrt")
-    return (build(JAX_IMG_CFG, jax_config_from_json, JaxDims),
-            build(IMG_CFG, config_from_json, Dims))
+        return from_json(raw, dims=dims(*TINY), dtype=dtype, **modes)
+    return (build(raw or JAX_IMG_CFG, jax_config_from_json, JaxDims),
+            build(raw or IMG_CFG, config_from_json, Dims))
 
 
 def reference_stream(jc, frames, seed, n_points, world_seed, imu_T,
@@ -136,13 +143,22 @@ def exact_crops():
         yield
 
 
-def run_both(jc, tc, frames=FRAMES, seeds=SEEDS):
+def run_both(jc, tc, frames=FRAMES, seeds=SEEDS, edit=None):
     """Both packages' runs of `frames` frames of len(seeds) sequences
     from one initial state: (reference (state, front end, outputs
-    stacked (B, T, ...)), port (state, front end, outputs))."""
+    stacked (B, T, ...)), port (state, front end, outputs)); `edit` maps
+    the stacked stream's images (B, T, H, W) to those both run on. The
+    reference's ``next_fid`` (and, with ``do_outlier_rejection``, its
+    rejection count) starts as int64, the dtype JAX's sums give it after
+    a frame with x64 on, so that its step is traced once. With
+    ``do_outlier_rejection``, each sequence gets its own key, and the
+    homography draws the reference makes from it each frame are rebuilt
+    (``tracker_draws``) and handed to the port."""
     streams = [port_stream(tc, frames, sd) for sd in seeds]
     fi = type(streams[0][0])(*(np.stack(x) for x in
                                zip(*[f for f, _ in streams])))
+    if edit is not None:
+        fi = fi._replace(image=edit(fi.image))
     g0 = np.stack([gt["gyro0"] for _, gt in streams])
     a0 = np.stack([gt["accel0"] for _, gt in streams])
     B = len(seeds)
@@ -150,19 +166,34 @@ def run_both(jc, tc, frames=FRAMES, seeds=SEEDS):
                                           last_accel=jnp.asarray(a0))
     jf = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape).copy(),
                       jax_init_frontend(jc))
+    js = js._replace(next_fid=js.next_fid.astype(jnp.int64))
+    rejection = jc.do_outlier_rejection
+    if rejection:
+        js = js._replace(key=jax.random.split(jax.random.PRNGKey(9), B),
+                         n_tracker_rejected=js.n_tracker_rejected.astype(
+                             jnp.int64))
     ts = interop.state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
     tf = interop.frontend_from_numpy(jax.tree.map(np.asarray, jf), "cpu")
 
     step = jax.jit(jax.vmap(
         lambda s, f, *a: jax_vio_frame_image(jc, s, f, *a)))
-    outs = []
+    outs, draws = [], []
     with exact_crops():
         for t in range(frames):
+            if rejection:
+                nxt, u = tracker_draws(js.key, jc.dims.nf_rows)
+                draws.append(u)
             js, jf, o = step(js, jf, *(jnp.asarray(a[:, t]) for a in fi))
+            if rejection:
+                np.testing.assert_array_equal(np.asarray(js.key),
+                                              np.asarray(nxt))
             outs.append(o)
     jo = jax.tree.map(lambda *x: np.stack(x, 1), *outs)
     ref = (jax.tree.map(np.asarray, js), jax.tree.map(np.asarray, jf), jo)
-    port = run_batch_image(tc, ts, tf, image_inputs_to_device(fi, "cpu"))
+    hom = torch.tensor(np.stack(draws, 1)) if rejection else None
+    port = run_batch_image(fit_substeps(tc, fi), ts, tf,
+                           image_inputs_to_device(fi, "cpu"),
+                           hom_uniforms=hom)
     return ref, port
 
 

@@ -74,7 +74,12 @@ def reference_draws(keys, n, dtype):
 
 
 def batched_map(capacity, B):
+    """B empty reference maps. The counters start as int64, the dtype
+    JAX's sums give them after a frame with x64 on, so that a jitted
+    step over the map is traced once."""
     ms = jax_init_map(capacity, dtype=jnp.float64)
+    ms = ms._replace(**{k: getattr(ms, k).astype(jnp.int64)
+                        for k in ("write_ptr", "count", "n_merged")})
     return jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape).copy(),
                         ms)
 

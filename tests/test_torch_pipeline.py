@@ -213,6 +213,7 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.ops.lanes_chol, xivo_tpu_torch.ops.lk\n"
         "import xivo_tpu_torch.frontend.tracker, xivo_tpu_torch.frontend.lk\n"
         "import xivo_tpu_torch.frontend.fast, xivo_tpu_torch.frontend.brief\n"
+        "import xivo_tpu_torch.frontend.homography, xivo_tpu_torch.cam\n"
         "import xivo_tpu_torch.sim.render, xivo_tpu_torch.sim.image_stream\n"
         "import xivo_tpu_torch.map, xivo_tpu_torch.map.mapper\n"
         "import xivo_tpu_torch.map.p3p, xivo_tpu_torch.map.integration\n"
@@ -270,9 +271,8 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     ("use_huber", "A.16"), ("use_oc", "A.16"),
     ("online_camera_calib", "A.16"),
     ({"propagation_mode": "batched", "covariance_form": "full"}, "A.16"),
-    ("do_outlier_rejection", "A.12"),
     (("tracker_type", "MATCH"), "A.12"), (("detector", "GFTT"), "A.12"),
-    (("descriptor_type", "orb"), "A.12"), (("cam_model", "equi"), "A.12")])
+    (("descriptor_type", "orb"), "A.12")])
 def test_options_outside_the_slice_raise(option, item):
     """Each branch the port leaves out names the ROADMAP.md item (queue
     A) that brings it, from every entry point."""

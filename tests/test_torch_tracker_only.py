@@ -32,6 +32,9 @@ def runs():
                        for sd in SEEDS])
     B = len(SEEDS)
     js = jax_batch_states(jc, B)
+    # next_fid as int64: the dtype the step gives it with x64 on, so that
+    # the jitted step is traced once
+    js = js._replace(next_fid=js.next_fid.astype(jnp.int64))
     jf = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape).copy(),
                       jax_init_frontend(jc))
     ts = interop.state_from_numpy(jax.tree.map(np.asarray, js), "cpu")

@@ -150,10 +150,6 @@ def check_supported(cfg: VIOConfig):
         raise NotImplementedError(
             f"xivo_tpu_torch: {on} come with ROADMAP A.16 (the other filter "
             "options)")
-    if cfg.do_outlier_rejection:
-        raise NotImplementedError(
-            "homography outlier rejection needs a seeded generator the "
-            "port does not carry yet; it comes with ROADMAP A.12")
     if cfg.tracker_type.upper() == "MATCH":
         raise NotImplementedError(
             "the MATCH tracker comes with ROADMAP A.12")
@@ -165,7 +161,6 @@ def check_supported(cfg: VIOConfig):
         raise NotImplementedError(
             f"descriptor {cfg.descriptor_type!r}: only BRIEF is ported; the "
             "others come with ROADMAP A.12")
-    cam_mod._check(cam_mod.MODEL_IDS[cfg.cam_model])
 
 
 def init_state(cfg: VIOConfig, device="cuda") -> VIOState:
@@ -211,11 +206,7 @@ def init_state(cfg: VIOConfig, device="cuda") -> VIOState:
     else:
         P = t(np.diag(stds ** 2))
 
-    _, intrin, _ = cam_mod.intrinsics_from_cfg(
-        dict(model=cfg.cam_model, rows=int(cfg.cam_params[0]),
-             cols=int(cfg.cam_params[1]), fx=cfg.cam_params[2],
-             fy=cfg.cam_params[3], cx=cfg.cam_params[4],
-             cy=cfg.cam_params[5]), dtype=dt, device=dev)
+    _, intrin, _ = cam_mod.intrinsics_from_vio_cfg(cfg, dtype=dt, device=dev)
 
     NF, NG = d.nf_rows, d.ng_rows
     i64 = dict(dtype=torch.int64, device=dev)

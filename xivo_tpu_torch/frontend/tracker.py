@@ -8,11 +8,14 @@ B sequences (IMU propagation, LK, masked detection, BRIEF extraction and
 the filter update step). Every tensor carries the batch axis B first;
 nothing in a frame reads a value back to the host.
 
+With ``cfg.do_outlier_rejection``, each frame step takes the frame's
+homography draws ``hom_uniforms`` (B, N_HYPS, NF) (``homography.py``).
+
 Not ported yet (ROADMAP A.12): the MATCH tracker (``tracker_match``),
-homography outlier rejection, detectors other than FAST and descriptors
-other than BRIEF (so the reference's detector and descriptor factories
-reduce to ``fast_score`` and ``brief.extract``);
-``filter.state.check_supported`` refuses a config that asks for them.
+detectors other than FAST and descriptors other than BRIEF (so the
+reference's detector and descriptor factories reduce to ``fast_score``
+and ``brief.extract``); ``filter.state.check_supported`` refuses a config
+that asks for them.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from ..cam import models as cam_mod
 from ..filter.config import VIOConfig
 from ..filter.features import bcast_X, predict_pixel
 from ..filter.pipeline import (_clear_feature_rows, _rank_assign, _where,
-                               propagate_frame, update_step)
+                               propagate_frame, reject_outliers, update_step)
 from ..filter.state import (FS_CREATED, TS_CREATED, TS_DROPPED, TS_TRACKED,
                             VIOState, check_supported)
 from ..ops.dense import take_rows
@@ -58,7 +61,7 @@ def init_frontend(cfg: VIOConfig, device="cuda") -> FrontendState:
 
 
 def tracker_image(cfg: VIOConfig, s: VIOState, fes: FrontendState,
-                  image) -> Tuple[VIOState, FrontendState]:
+                  image, hom_uniforms=None) -> Tuple[VIOState, FrontendState]:
     """One tracker update from (B, H, W) images."""
     fr = s.features
     gr = s.groups
@@ -90,7 +93,9 @@ def tracker_image(cfg: VIOConfig, s: VIOState, fes: FrontendState,
     disp_ok = torch.linalg.vector_norm(new_xy - fr.xp, dim=-1) \
         < cfg.max_pixel_displacement
     tracked = active & ok & disp_ok
-    s = s._replace(n_tracker_rejected=torch.zeros_like(s.n_tracker_rejected))
+    tracked, n_rej = reject_outliers(cfg, fr.xp, new_xy, tracked,
+                                     hom_uniforms)
+    s = s._replace(n_tracker_rejected=n_rej)
     img_smooth = blur5(pyr_new[0])
 
     if cfg.extract_descriptor and cfg.descriptor_distance_thresh > 0:
@@ -202,19 +207,20 @@ def _spawn_detections(s: VIOState, fr, det_xy, det_score, descs, det_ok,
 
 
 def vio_frame_image(cfg: VIOConfig, s: VIOState, fes: FrontendState,
-                    imu_gyro, imu_accel, imu_dt, frame_dt, image):
+                    imu_gyro, imu_accel, imu_dt, frame_dt, image,
+                    hom_uniforms=None):
     """Image-mode frame step for B sequences (the TUM-VI path): IMU
     propagation + LK tracker + filter update. Returns (state, front-end
     state, StepOutputs)."""
     check_supported(cfg)
     s = propagate_frame(cfg, s, imu_gyro, imu_accel, imu_dt, frame_dt)
-    s, fes = tracker_image(cfg, s, fes, image)
+    s, fes = tracker_image(cfg, s, fes, image, hom_uniforms)
     s, out = update_step(cfg, s)
     return s, fes, out
 
 
 def tracker_only_frame(cfg: VIOConfig, s: VIOState, fes: FrontendState,
-                       image):
+                       image, hom_uniforms=None):
     """Front-end-only step (the feature_tracker_only app,
     src/app/feature_tracker_only.cpp): track + detect, no filter. With no
     filter to consume TS_DROPPED rows, they are freed here at the start of
@@ -223,4 +229,4 @@ def tracker_only_frame(cfg: VIOConfig, s: VIOState, fes: FrontendState,
     fr = s.features
     stale = fr.active & (fr.track == TS_DROPPED)
     s = s._replace(features=_clear_feature_rows(fr, stale))
-    return tracker_image(cfg, s, fes, image)
+    return tracker_image(cfg, s, fes, image, hom_uniforms)

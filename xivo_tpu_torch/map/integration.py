@@ -6,7 +6,10 @@ Retirement feeds the map when in-state features leave the tracker
 src/estimator.cpp:1337-1349), a periodic keyframe snapshot feeds it too,
 and CloseLoop runs after each visual update (src/app/vio.cpp:75-77). Each
 step takes the frame's RANSAC draws ``uniforms`` (B, n_hyps, F)
-(``map/p3p.py``).
+(``map/p3p.py``) and, with ``cfg.do_outlier_rejection``, the tracker's
+homography draws ``hom_uniforms`` (B, N_HYPS, NF) (``frontend/
+homography.py``; the reference splits the tracker's key before
+``close_loop``'s).
 """
 from __future__ import annotations
 
@@ -51,23 +54,24 @@ def _map_and_close(cfg: VIOConfig, s: VIOState, ms: MapState, uniforms):
 
 def vio_frame_mapped(cfg: VIOConfig, s: VIOState, ms: MapState, imu_gyro,
                      imu_accel, imu_dt, frame_dt, meas_id, meas_xp,
-                     meas_depth, meas_valid, uniforms):
+                     meas_depth, meas_valid, uniforms, hom_uniforms=None):
     """Point-cloud frame step with mapping + loop closure for B sequences.
     Returns (state, map, StepOutputs, closure rows (B,))."""
     check_supported(cfg)
     s = propagate_frame(cfg, s, imu_gyro, imu_accel, imu_dt, frame_dt)
-    s = tracker_pointcloud(cfg, s, meas_id, meas_xp, meas_depth, meas_valid)
+    s = tracker_pointcloud(cfg, s, meas_id, meas_xp, meas_depth, meas_valid,
+                           hom_uniforms)
     return _map_and_close(cfg, s, ms, uniforms)
 
 
 def vio_frame_image_mapped(cfg: VIOConfig, s: VIOState, fes, ms: MapState,
                            imu_gyro, imu_accel, imu_dt, frame_dt, image,
-                           uniforms):
+                           uniforms, hom_uniforms=None):
     """Image frame step with mapping + loop closure for B sequences.
     Returns (state, front-end state, map, StepOutputs, closure rows)."""
     from ..frontend.tracker import tracker_image
     check_supported(cfg)
     s = propagate_frame(cfg, s, imu_gyro, imu_accel, imu_dt, frame_dt)
-    s, fes = tracker_image(cfg, s, fes, image)
+    s, fes = tracker_image(cfg, s, fes, image, hom_uniforms)
     s, ms, out, n_lc = _map_and_close(cfg, s, ms, uniforms)
     return s, fes, ms, out, n_lc

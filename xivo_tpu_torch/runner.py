@@ -7,7 +7,11 @@ batch axis written out. ``run_batch_image`` does the same for image mode
 over ``vio_frame_image``; ``run_batch_mapped`` and
 ``run_batch_image_mapped`` run the mapped steps (``map/integration.py``)
 with a map per sequence (``batch_maps``), drawing each frame's RANSAC
-uniforms on the device from a seeded ``torch.Generator``. The loops read
+uniforms on the device from a seeded ``torch.Generator``. With
+``cfg.do_outlier_rejection`` every runner also draws each frame's
+homography uniforms (B, N_HYPS, NF) there, in the states' dtype, before
+the frame's RANSAC draws (the reference splits the tracker's key first);
+``hom_uniforms`` (B, T, N_HYPS, NF) replaces them. The loops read
 nothing back to the host until the last frame has been enqueued.
 
 Where the config propagates through the capped substep loops
@@ -29,6 +33,7 @@ from .filter import propagate
 from .filter.config import VIOConfig
 from .filter.pipeline import StepOutputs, vio_frame
 from .filter.state import VIOState, init_state, tree_map
+from .frontend.homography import N_HYPS as HOM_N_HYPS
 from .frontend.tracker import FrontendState, init_frontend, vio_frame_image
 from .map.integration import vio_frame_image_mapped, vio_frame_mapped
 from .map.mapper import MapState, init_map
@@ -176,14 +181,16 @@ def _checked(cfg: VIOConfig, device, check: bool, loop):
 
 
 def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs,
-              check: bool = True):
+              check: bool = True, seed: int = 0, hom_uniforms=None):
     """Run B sequences of T frames. fis: (B, T, ...) tensors on the
     states' device. Returns (final state, StepOutputs stacked (B, T, ...))."""
+    hom = _hom_draws(cfg, states, hom_uniforms, _generator(states, seed))
+
     def loop():
         s = states
         outs = []
         for t in range(fis.frame_dt.shape[1]):
-            s, out = vio_frame(cfg, s, *(a[:, t] for a in fis))
+            s, out = vio_frame(cfg, s, *(a[:, t] for a in fis), hom(t))
             outs.append(out)
         return s, _stack(outs)
     return _checked(cfg, states.P.device, check, loop)
@@ -200,68 +207,93 @@ def make_batch_runner(cfg: VIOConfig):
 
 
 def run_batch_image(cfg: VIOConfig, states: VIOState, fes: FrontendState,
-                    fis: ImageInputs, check: bool = True):
+                    fis: ImageInputs, check: bool = True, seed: int = 0,
+                    hom_uniforms=None):
     """Run B image-mode sequences of T frames. fis: (B, T, ...) tensors on
     the states' device. Returns (final state, final front-end state,
     StepOutputs stacked (B, T, ...))."""
+    hom = _hom_draws(cfg, states, hom_uniforms, _generator(states, seed))
+
     def loop():
         s, f = states, fes
         outs = []
         for t in range(fis.frame_dt.shape[1]):
-            s, f, out = vio_frame_image(cfg, s, f, *(a[:, t] for a in fis))
+            s, f, out = vio_frame_image(cfg, s, f, *(a[:, t] for a in fis),
+                                        hom(t))
             outs.append(out)
         return s, f, _stack(outs)
     return _checked(cfg, states.P.device, check, loop)
 
 
-def _draws(cfg: VIOConfig, s: VIOState, uniforms, seed: int):
-    """Frame t -> its RANSAC uniforms (B, n_hyps, F): the given
-    (B, T, n_hyps, F) tensor's, or fresh ones from a generator on the
-    states' device seeded with `seed`."""
-    if uniforms is not None:
-        return lambda t: uniforms[:, t]
+def _generator(s: VIOState, seed: int):
     gen = torch.Generator(device=s.P.device)
     gen.manual_seed(seed)
-    shape = (s.P.shape[0], N_HYPS, cfg.dims.n_features)
+    return gen
+
+
+def _draws(s: VIOState, shape, uniforms, gen):
+    """Frame t -> its uniforms (B, *shape): the given (B, T, *shape)
+    tensor's, or fresh ones from `gen` on the states' device, in their
+    dtype."""
+    if uniforms is not None:
+        return lambda t: uniforms[:, t]
+    shape = (s.P.shape[0],) + tuple(shape)
     return lambda t: torch.rand(shape, generator=gen, dtype=s.P.dtype,
                                 device=s.P.device)
+
+
+def _hom_draws(cfg: VIOConfig, s: VIOState, uniforms, gen):
+    """Frame t -> its homography draws (B, N_HYPS, NF), or None where the
+    config rejects no outliers."""
+    if not cfg.do_outlier_rejection:
+        return lambda t: None
+    return _draws(s, (HOM_N_HYPS, s.features.fid.shape[-1]), uniforms, gen)
 
 
 def _stack(outs):
     return StepOutputs(*(torch.stack(o, dim=1) for o in zip(*outs)))
 
 
-def _run_mapped(cfg, step, carry, fis, draw, check):
-    """The mapped frame loop: ``step(*carry, *inputs of frame t, draws)``
-    returns (*carry, StepOutputs, closure rows) for every frame t."""
+def _run_mapped(cfg, step, carry, fis, seed, uniforms, hom_uniforms,
+                check):
+    """The mapped frame loop: ``step(*carry, *inputs of frame t, RANSAC
+    draws, homography draws)`` returns (*carry, StepOutputs, closure rows)
+    for every frame t."""
+    s0 = carry[0]
+    gen = _generator(s0, seed)
+    hom = _hom_draws(cfg, s0, hom_uniforms, gen)
+    draw = _draws(s0, (N_HYPS, cfg.dims.n_features), uniforms, gen)
+
     def loop():
         c = carry
         outs, lcs = [], []
         for t in range(fis.frame_dt.shape[1]):
-            *c, out, n_lc = step(*c, *(a[:, t] for a in fis), draw(t))
+            h = hom(t)          # the tracker's draws come first
+            *c, out, n_lc = step(*c, *(a[:, t] for a in fis), draw(t), h)
             outs.append(out)
             lcs.append(n_lc)
         return (*c, _stack(outs), torch.stack(lcs, dim=1))
-    return _checked(cfg, carry[0].P.device, check, loop)
+    return _checked(cfg, s0.P.device, check, loop)
 
 
 def run_batch_mapped(cfg: VIOConfig, states: VIOState, maps: MapState,
                      fis: FrameInputs, seed: int = 0, uniforms=None,
-                     check: bool = True):
+                     check: bool = True, hom_uniforms=None):
     """Run B mapped sequences of T frames (``vio_frame_mapped``). fis:
     (B, T, ...) tensors on the states' device; ``uniforms`` (B, T, n_hyps,
-    F), if given, replaces the seeded draws. Returns (final state, final
-    map, StepOutputs stacked (B, T, ...), closure rows (B, T))."""
+    F), if given, replaces the seeded RANSAC draws (``hom_uniforms`` the
+    homography draws). Returns (final state, final map, StepOutputs
+    stacked (B, T, ...), closure rows (B, T))."""
     return _run_mapped(cfg, partial(vio_frame_mapped, cfg), (states, maps),
-                       fis, _draws(cfg, states, uniforms, seed), check)
+                       fis, seed, uniforms, hom_uniforms, check)
 
 
 def run_batch_image_mapped(cfg: VIOConfig, states: VIOState,
                            fes: FrontendState, maps: MapState,
                            fis: ImageInputs, seed: int = 0, uniforms=None,
-                           check: bool = True):
+                           check: bool = True, hom_uniforms=None):
     """``run_batch_mapped`` for image mode (``vio_frame_image_mapped``).
     Returns (state, front-end state, map, StepOutputs, closure rows)."""
     return _run_mapped(cfg, partial(vio_frame_image_mapped, cfg),
-                       (states, fes, maps), fis,
-                       _draws(cfg, states, uniforms, seed), check)
+                       (states, fes, maps), fis, seed, uniforms,
+                       hom_uniforms, check)

@@ -1,12 +1,18 @@
 """Rendered image streams for image-mode VIO (host numpy).
 
 The counterpart of the JAX package's image benchmark stream
-(``scripts/bench_image.py::build_frames``, pinhole camera): a gentle IMU
+(``scripts/bench_image.py::build_frames``): a gentle IMU
 trajectory through a random landmark cloud, one dot-rendered frame every
 ``VIS_DT`` seconds and the IMU samples between frames packed into a fixed
 (KI,) axis. The rates, the pack width and the motion are the benchmark's
-own constants. Everything stays in numpy; ``runner.image_inputs_to_device``
-moves it to the device once.
+own constants. A config whose camera is not pinhole is rendered through
+its own lens, the intrinsics and distortion the filter starts from
+(``stream.cfg_projector``). The benchmark's equidistant variant passes
+``cfg.cam_params`` itself, rows and columns first, as the intrinsics
+vector (``scripts/bench_image.py:61-67``), so its dots do not land where
+its filter's lens puts them; the port renders through the lens instead.
+Everything stays in numpy; ``runner.image_inputs_to_device`` moves it to
+the device once.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from ..runner import ImageInputs
 from .configs import make_world
 from .imu_sim import get_imu_sim
 from .render import render_dots
-from .stream import _rodrigues
+from .stream import _rodrigues, cfg_projector
 
 VIS_DT, IMU_DT, KI = 0.05, 0.01, 8     # frame and IMU periods (s), IMU slots
 MOTION = "gentle"
@@ -25,7 +31,7 @@ MOTION = "gentle"
 
 def build_image_stream(cfg: VIOConfig, total_time=6.0, n_points=800,
                        world_seed=2, seed=1, imu_T=8.0):
-    """One sequence through the config's pinhole camera. Returns
+    """One sequence through the config's camera. Returns
     (ImageInputs of numpy arrays: gyro/accel (T, KI, 3), imu_dt (T, KI),
     frame_dt (T,), image (T, rows, cols) float32; gt dict with the poses
     Rsb (T, 3, 3) and Tsb (T, 3) at each frame, the frame times t, and
@@ -39,6 +45,7 @@ def build_image_stream(cfg: VIOConfig, total_time=6.0, n_points=800,
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
     Rbc = _rodrigues(cfg.X_Wbc)
     Tbc = np.asarray(cfg.X_Tbc)
+    project_fn = None if cfg.cam_model == "pinhole" else cfg_projector(cfg)
     dtype = np.float32 if cfg.dtype == "float32" else np.float64
 
     gyro, accel, dts, fdts, images = [], [], [], [], []
@@ -58,7 +65,7 @@ def build_image_stream(cfg: VIOConfig, total_time=6.0, n_points=800,
             i += 1
         Rsb, Tsb = imu.gsb(t)
         images.append(render_dots(Xs, Rsb @ Rbc, Rsb @ Tbc + Tsb, K, cols,
-                                  rows))
+                                  rows, project_fn=project_fn))
         gyro.append(gys)
         accel.append(acs)
         dts.append(dt)

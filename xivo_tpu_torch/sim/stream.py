@@ -4,6 +4,7 @@ reference's stream for the same seeds)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..filter.config import VIOConfig
 from ..runner import pack_frame_inputs
@@ -25,18 +26,60 @@ def _rodrigues(w) -> np.ndarray:
     return np.eye(3) + a * W + b * (W @ W)
 
 
+def cfg_projector(cfg: VIOConfig):
+    """Normalized coords (N, 2) -> pixels (N, 2) through the config's
+    camera model, in float64 numpy (``cam.models.project`` on the CPU)."""
+    from ..cam import models as cam_mod
+    kind, intrin, _ = cam_mod.intrinsics_from_vio_cfg(
+        cfg, dtype=torch.float64, device="cpu")
+    return lambda xn: cam_mod.project(
+        kind, intrin, torch.from_numpy(np.asarray(xn, np.float64))).numpy()
+
+
+def _generate_with_cfg_camera(pcw, cfg: VIOConfig, Rsc, Tsc, imw, imh,
+                              noise_px_std):
+    """Project world points through the config's (possibly distorted)
+    camera model (the reference's ``_generate_with_cfg_camera``): the
+    measurements (ids, [xp, depth]) of one frame, the world's id
+    bookkeeping updated."""
+    Xc = (pcw.Xs - Tsc[None, :]) @ Rsc
+    z = Xc[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xn = Xc[:, :2] / z[:, None]
+    xp = cfg_projector(cfg)(xn)
+    vis = (z > 0.1) & np.isfinite(xp).all(axis=1) \
+        & (xp[:, 0] >= 0) & (xp[:, 1] >= 0) \
+        & (xp[:, 0] <= imw) & (xp[:, 1] <= imh)
+    # polynomial distortion models (radtan) fold large off-axis angles
+    # back into the image; restrict to the invertible region like a real
+    # lens hood would
+    if cfg.cam_model == "radtan":
+        vis &= np.linalg.norm(xn, axis=1) < 0.8
+    if noise_px_std > 0:
+        xp = xp + noise_px_std * pcw.rng.standard_normal(xp.shape)
+    newly = vis & (pcw.ids < 0)
+    n_new = int(newly.sum())
+    pcw.ids[newly] = np.arange(pcw.next_id, pcw.next_id + n_new)
+    pcw.next_id += n_new
+    pcw.ids[~vis] = -1
+    return pcw.ids[vis].copy(), np.concatenate(
+        [xp[vis], z[vis, None]], axis=1)
+
+
 def build_pcw_stream(cfg: VIOConfig, total_time=10.0, imu_dt=0.01,
                      vision_dt=0.05, motion="gentle", n_points=600,
                      noise_px=0.5, noise_accel=1e-4, noise_gyro=1e-5,
                      seed=1, world_seed=0, imu_cap=32, meas_cap=256,
                      true_Rbc=None, true_Tbc=None, true_Cg=None,
                      true_Ca=None, true_td=0.0, true_K=None, world=None,
-                     bias_walk_accel=0.0, bias_walk_gyro=0.0,
-                     bias_gyro=None, bias_accel=None):
-    """Simulate and pack one sequence through the pinhole camera of the
-    config. Returns (FrameInputs of numpy arrays, gt dict). The ``true_*``
-    arguments inject ground-truth calibration that may differ from the
-    config's initial guesses (see the reference's docstring)."""
+                     use_cfg_camera=False, bias_walk_accel=0.0,
+                     bias_walk_gyro=0.0, bias_gyro=None, bias_accel=None):
+    """Simulate and pack one sequence. Returns (FrameInputs of numpy
+    arrays, gt dict). The measurements come through the pinhole camera of
+    the config's first four intrinsics or, with ``use_cfg_camera``,
+    through the config's own camera model (distortion included). The
+    ``true_*`` arguments inject ground-truth calibration that may differ
+    from the config's initial guesses (see the reference's docstring)."""
     imu_kw = dict(T=total_time + 1.0, noise_accel=noise_accel,
                   noise_gyro=noise_gyro, seed=seed,
                   bias_walk_accel=bias_walk_accel,
@@ -92,8 +135,12 @@ def build_pcw_stream(cfg: VIOConfig, total_time=10.0, imu_dt=0.01,
         Rsb, Tsb = imu.gsb(tv + true_td)
         Rsc = Rsb @ Rbc
         Tsc = Rsb @ Tbc + Tsb
-        ids, xpd = pcw.generate_measurements(Rsc, Tsc, K, cols, rows,
-                                             noise_px)
+        if use_cfg_camera:
+            ids, xpd = _generate_with_cfg_camera(pcw, cfg, Rsc, Tsc, cols,
+                                                 rows, noise_px)
+        else:
+            ids, xpd = pcw.generate_measurements(Rsc, Tsc, K, cols, rows,
+                                                 noise_px)
         frames.append(dict(imu=pending, frame_dt=max(tv - t_prev, 0.0),
                            ids=ids, xp=xpd[:, :2], depth=xpd[:, 2]))
         pending = []
