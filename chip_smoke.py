@@ -174,6 +174,38 @@ outlier rejection; phases 23-26 run right after phase 8):
    and features, OOS drops and rejections equal frame by frame (phase
    17's rule); B4 and B5 4 launches a frame, B2, B3, B6 and B7 none, B1
    at most one (at 229, when compression fires).
+slice 12, the host side (the pyxivo ``Estimator`` and the replay app;
+phases 27-29 run last, each printing its time):
+27. ``tests/test_api.py::run_short``'s stream (the gentle trajectory, 300
+   random points, 100 Hz IMU, 20 Hz frames, 2 s; the port's simulator)
+   through ``xivo_tpu_torch.api.Estimator`` at the default Dims (D = 228,
+   float32) of ``config_from_json(PCW_CFG, sim_initialize_depths=True)``,
+   once as the default filter and once with ``propagation_mode="fast",
+   covariance_form="sqrt"``: on CUDA (after a first run of the stream's
+   first API_WARM_T s, which fills the cache of device constants) with
+   every ``VisualMeasPointCloud`` and ``InertialMeas`` call from the
+   second frame after vision init under the sync debug mode "error"
+   (accessors outside it), and on the CPU (the default filter's first
+   API_FULL_CMP_FRAMES frames after vision init, the square-root form's
+   all); poses within 1e-3 m at every frame compared, equal counts;
+   B1-B3 once a frame in the square-root run, no kernel in the default
+   filter's; prints frames/s of the sequence;
+28. the synthetic ASL dataset of ``tests/test_io.py::build_synthetic_asl``
+   (``sim/asl.write_dots_dataset``: IMG_CFG's 320 x 240 camera, 20 frames,
+   ``.npy`` images) replayed by ``python -m xivo_tpu_torch.apps.vio`` in a
+   subprocess on the card; the trajectory read back with
+   ``eval.estimator_data.load_trajectory``: 20 finite poses, the final
+   position within 1.0 m of the truth (``tests/test_io.py:95``), B4 and
+   B5 ``klt_max_level`` (3) times a frame as the app reports them, no
+   other kernel;
+29. ``cfg/tumvi_cam0.json`` as shipped through the Estimator: 40 frames of
+   phase 24's world and motion through its lens after 0.6 s of rest, with
+   mocap, written as a TUM-VI directory (``sim/asl.write_tumvi_dataset``)
+   and read with ``io.load_dataset``; CUDA against the CPU over the first
+   10 frames (poses within 1e-3 m, equal counts), all 40 on CUDA (finite
+   poses, B4 and B5 4 times a frame, no other kernel); prints the ATE-RMSE
+   against the mocap (``eval.metrics.ate_rmse``), the pairs associated
+   and frames/s, with no bound on them.
 Phase 9 also profiles five frames of phase 21's path (frames 30-34), with
 the IMU-sample updates and the Joseph updates among its stages, and times
 five frames of phase 24's (frames 30-34) with a synchronize around each
@@ -2299,6 +2331,218 @@ def slice11_phases(torch, lc, lko, hm, chol):
     return checks, launches, acc, equi, tumvi
 
 
+API_T = 2.0             # tests/test_api.py::run_short: 2 s of stream
+API_WARM_T = 0.3        # the stream's head, run once before a checked run
+API_PATH_TOL = 1e-3     # CUDA vs CPU through the Estimator, m
+# the frames of the default filter's CUDA run held against the CPU (the
+# square-root run's are all held): its CPU run is the slow one, and the
+# script keeps within its time limit
+API_FULL_CMP_FRAMES = 10
+ASL_FINAL_BOUND = 1.0   # tests/test_io.py:95
+TUMVI_API_FRAMES, TUMVI_API_CMP_FRAMES = 40, 10
+
+
+def drive_api(torch, est, msgs, checked=False, max_frames=None):
+    """Feed the messages to the estimator, up to the `max_frames`-th frame
+    after vision init where given; returns each frame's position and
+    counts (read after it) and the wall s of the whole run. With
+    `checked`, every entry-point call from the second frame after vision
+    init on runs under the sync debug mode "error"."""
+    frames = []
+    t0 = time.perf_counter()
+    for t, kind, a, b in msgs:
+        if len(frames) == max_frames:
+            break
+        check = checked and len(frames) >= 2
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if kind == "imu":
+                est.InertialMeas(t, a, b)
+            else:
+                est.VisualMeasPointCloud(t, a, b)
+        finally:
+            if check:
+                torch.cuda.set_sync_debug_mode("default")
+        if kind != "imu" and est.VisionInitialized():
+            frames.append((est.gsb()[1], [
+                est.num_instate_features(), est.num_instate_groups(),
+                est.num_tracked_features(), est.num_mh_rejected(),
+                est.num_tracker_outlier_rejected()]))
+    est.flush()
+    if est.device.type == "cuda":
+        torch.cuda.synchronize()
+    return frames, time.perf_counter() - t0
+
+
+def compare_api_frames(label, got, want):
+    """CUDA frames against CPU frames: positions within API_PATH_TOL,
+    counts equal; returns the largest difference."""
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{label}: {len(got)} frames on CUDA, "
+                             f"{len(want)} on the CPU")
+    worst = max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(got, want))
+    counts = [g[1] for g in got] == [w[1] for w in want]
+    if not (np.isfinite(worst) and worst < API_PATH_TOL and counts):
+        raise AssertionError(f"{label}: CUDA and CPU differ by {worst} m "
+                             f"(counts equal: {counts})")
+    return worst
+
+
+def api_pcw_phase(torch, kernels, lc):
+    """Phase 27. Returns the launches of the default filter's and the
+    square-root form's checked runs."""
+    from xivo_tpu_torch.api import Estimator
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.sim.configs import PCW_CFG
+    from xivo_tpu_torch.sim.stream import run_short_messages
+    t_phase = time.time()
+    card = card_line()
+    out = {}
+    for label, over in (("default filter", {}),
+                        ("square-root", dict(propagation_mode="fast",
+                                             covariance_form="sqrt"))):
+        cfg = config_from_json(PCW_CFG, sim_initialize_depths=True, **over)
+        assert (cfg.dims.full, cfg.dtype) == (228, "float32")
+        msgs = run_short_messages(*Estimator(cfg, device="cpu").gbc(),
+                                  T=API_T)
+        drive_api(torch, Estimator(cfg, device=DEV),
+                  [m for m in msgs if m[0] < API_WARM_T])
+        for k in kernels:
+            k.launches = 0
+        got, wall = drive_api(torch, Estimator(cfg, device=DEV), msgs,
+                              checked=True)
+        launches = {k.name: k.launches for k in kernels}
+        n_cmp = API_FULL_CMP_FRAMES if over == {} else None
+        want, cpu_wall = drive_api(torch, Estimator(cfg, device="cpu"), msgs,
+                                   max_frames=n_cmp)
+        worst = compare_api_frames(f"api {label}", got[:n_cmp], want)
+        n, n_cpu = len(got), len(want)
+        expect = {k.name: 0 for k in kernels}
+        if cfg.covariance_form == "sqrt":
+            expect.update({k.name: n for k in lc.KERNELS})
+        print(f"api {label} (Estimator, PCW_CFG, D={cfg.dims.full}, "
+              f"float32, B=1): {n} frames, CUDA {wall:.3f} s = "
+              f"{n / wall:.2f} frames/s of one sequence (CPU, {n_cpu} "
+              f"frames: {cpu_wall:.3f} s = {n_cpu / cpu_wall:.2f} frames/s);"
+              f" CUDA vs CPU over {n_cpu} frames max |dTsb| "
+              f"{worst:.3e} m, counts equal; launches {launches}; no host "
+              f"sync in the frame entry points from frame 2; on {card}",
+              flush=True)
+        if launches != expect:
+            raise AssertionError(f"launches {launches}, expected {expect}")
+        out[label] = launches
+    print(f"phase 27 done in {time.time() - t_phase:.1f} s", flush=True)
+    return out["default filter"], out["square-root"]
+
+
+def asl_replay_phase(torch, kernels, lko):
+    """Phase 28. Returns the launches the replay app reports."""
+    import ast
+    import tempfile
+    from xivo_tpu_torch.eval.estimator_data import load_trajectory
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.sim.asl import write_dots_dataset
+    from xivo_tpu_torch.sim.configs import IMG_CFG
+    t_phase = time.time()
+    cfg = config_from_json(IMG_CFG)
+    with tempfile.TemporaryDirectory() as tmp:
+        imu = write_dots_dataset(tmp, cfg)
+        cfg_path, out = (os.path.join(tmp, n) for n in ("img.json", "traj"))
+        with open(cfg_path, "w") as f:
+            json.dump(IMG_CFG, f)
+        r = subprocess.run(
+            [sys.executable, "-m", "xivo_tpu_torch.apps.vio", "-cfg",
+             cfg_path, "-root", tmp, "-dataset", "xivo", "-seq", "seq",
+             "-out", out, "-device", DEV],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"the replay app failed:\n{r.stderr[-3000:]}")
+        summary, line = r.stdout.strip().splitlines()[-2:]
+        launches = ast.literal_eval(line[len("launches "):])
+        traj = load_trajectory(out)
+    err = np.linalg.norm(traj["T"][-1] - imu.gsb(traj["ts"][-1])[1])
+    n = len(traj["ts"])
+    print(f"asl replay (python -m xivo_tpu_torch.apps.vio, IMG_CFG, "
+          f"{cfg.propagation_mode} propagation, {cfg.covariance_form} "
+          f"covariance, float32): {summary}; {n} poses, final error "
+          f"{err:.4f} m (bound {ASL_FINAL_BOUND}); launches {launches}; "
+          f"on {card_line()}; phase 28 done in "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    if not (n == 20 and np.isfinite(traj["T"]).all()
+            and np.isfinite(traj["q"]).all() and err < ASL_FINAL_BOUND):
+        raise AssertionError("the ASL replay is outside its bounds")
+    expect = {k.name: 0 for k in kernels}
+    expect.update({k.name: cfg.klt_max_level * n for k in lko.KERNELS})
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    return launches
+
+
+def replay_dataset(torch, est, entries, max_frames):
+    """The vio app's loop through an estimator: each frame's (stamp,
+    position, counts), and the wall s."""
+    from xivo_tpu_torch.apps.vio import replay
+    frames = []
+    t0 = time.perf_counter()
+    for m in replay(est, entries, max_frames):
+        frames.append((m.ts, est.gsb()[1], [
+            est.num_tracked_features(), est.num_instate_features(),
+            est.num_instate_groups(), est.num_tracker_outlier_rejected()]))
+    return frames, time.perf_counter() - t0
+
+
+def tumvi_api_phase(torch, kernels, lko):
+    """Phase 29. Returns the launches of the 40-frame CUDA run."""
+    import tempfile
+    from xivo_tpu_torch.api import Estimator
+    from xivo_tpu_torch.eval.metrics import ate_rmse
+    from xivo_tpu_torch.filter.config import (config_from_json,
+                                              load_json_with_comments)
+    from xivo_tpu_torch.io import load_dataset
+    from xivo_tpu_torch.io.loader import load_mocap_tumvi
+    from xivo_tpu_torch.sim.asl import write_tumvi_dataset
+    t_phase = time.time()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        TUMVI_CFGS[0])
+    cfg = config_from_json(load_json_with_comments(path))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_tumvi_dataset(tmp, cfg, TUMVI_API_FRAMES)
+        entries = load_dataset(tmp, "tumvi", "room1")
+        mocap = load_mocap_tumvi(tmp, "room1")
+        for k in kernels:
+            k.launches = 0
+        got, wall = replay_dataset(torch, Estimator(path, device=DEV),
+                                   entries, TUMVI_API_FRAMES)
+        launches = {k.name: k.launches for k in kernels}
+        want, cpu_wall = replay_dataset(torch, Estimator(path, device="cpu"),
+                                        entries, TUMVI_API_CMP_FRAMES)
+    worst = compare_api_frames(
+        "api tumvi", [f[1:] for f in got[:TUMVI_API_CMP_FRAMES]],
+        [f[1:] for f in want])
+    n = len(got)
+    ts = np.asarray([f[0] for f in got])
+    pos = np.asarray([f[1] for f in got])
+    rmse, pairs, _ = ate_rmse(ts, pos, mocap[:, 0], mocap[:, 1:4])
+    print(f"api tumvi (Estimator, {TUMVI_CFGS[0]} as shipped, gravity "
+          f"init from rest, float32): {n} frames on CUDA in {wall:.3f} s = "
+          f"{n / wall:.2f} frames/s of one sequence (CPU, "
+          f"{len(want)} frames: {len(want) / cpu_wall:.2f} frames/s); CUDA "
+          f"vs CPU over {len(want)} frames max |dTsb| {worst:.3e} m, counts "
+          f"equal; ATE-RMSE {rmse:.5f} m over {pairs} pairs (no bound); "
+          f"tracked at the end {got[-1][2][0]}, in-state features "
+          f"{got[-1][2][1]}; launches {launches}; on {card_line()}; phase "
+          f"29 done in {time.time() - t_phase:.1f} s", flush=True)
+    if n != TUMVI_API_FRAMES or not np.isfinite(pos).all():
+        raise AssertionError("the TUM-VI replay lost frames or poses")
+    expect = {k.name: 0 for k in kernels}
+    expect.update({k.name: cfg.klt_max_level * n for k in lko.KERNELS})
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2346,6 +2590,11 @@ def main():
     del before
     tumvi_stage_times(torch, tumvi)
     del tumvi
+    all_kernels = lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS
+    api_full_launches, api_sqrt_launches = api_pcw_phase(
+        torch, all_kernels, lc)
+    asl_launches = asl_replay_phase(torch, all_kernels, lko)
+    tumvi_api_launches = tumvi_api_phase(torch, all_kernels, lko)
     for k in kernels:
         k["oos_shape"] = oos_shapes[k["name"]]
         if k["name"] == "chol_lanes":
@@ -2367,6 +2616,10 @@ def main():
         k["launches_tumvi_accuracy_cmp_path"] = tumvi_acc_launches.get(
             name, 0)
         k["launches_equidistant_image_path"] = equi_launches.get(name, 0)
+        k["launches_api_default_filter_path"] = api_full_launches[name]
+        k["launches_api_sqrt_path"] = api_sqrt_launches[name]
+        k["launches_asl_replay_path"] = asl_launches[name]
+        k["launches_tumvi_api_path"] = tumvi_api_launches[name]
         if name in tumvi_checks:
             k["tumvi_shape"] = tumvi_checks[name]
     print(f"elapsed: {time.time() - t_start:.1f} s", flush=True)

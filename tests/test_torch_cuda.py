@@ -49,6 +49,10 @@ float32 and ``MAP_FUSE_TOL64`` in float64 (see there why they differ).
 The homography RANSAC on the card against the CPU (masks and ``ok``
 equal, no host sync), and the distorted camera models in float32 on the
 card against the CPU.
+The pyxivo ``Estimator`` built for the card against one built for the
+CPU on ``tests/test_api.py::run_short``'s first frames (the square-root
+form at full width, float32): positions within ``chip_smoke``'s
+``API_PATH_TOL``, equal counts, B1-B3 once a frame.
 """
 import functools
 
@@ -57,7 +61,8 @@ import pytest
 import torch
 
 from chip_smoke import (GN_UNCONV_TOL, MAP_FUSE_TOL32, MAP_FUSE_TOL64,
-                        Recorder, backward_use, compare_retire,
+                        Recorder, backward_use,
+                        compare_api_frames, compare_retire, drive_api,
                         make_mapped_run, make_run, mapped_config,
                         mapped_stream, random_hamming_inputs, texture)
 from xivo_tpu_torch.frontend import lk as flk
@@ -656,3 +661,22 @@ def test_camera_models_on_the_card_match_the_cpu(cuda, model):
         for g, w in zip(fn(intrin.to(cuda), xc.to(cuda)), fn(intrin, xc)):
             np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
                                        atol=tol)
+
+
+def test_estimator_on_the_card_matches_the_cpu(cuda):
+    from xivo_tpu_torch.api import Estimator
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.sim.configs import PCW_CFG
+    from xivo_tpu_torch.sim.stream import run_short_messages
+    cfg = config_from_json(PCW_CFG, sim_initialize_depths=True,
+                           propagation_mode="fast", covariance_form="sqrt")
+    est = Estimator(cfg)
+    assert est.device.type == "cuda"
+    msgs = run_short_messages(*est.gbc(), T=0.5)
+    for k in lc.KERNELS:
+        k.launches = 0
+    got, _ = drive_api(torch, est, msgs)
+    assert [k.launches for k in lc.KERNELS] == [len(got)] * 3
+    want, _ = drive_api(torch, Estimator(cfg, device="cpu"), msgs)
+    compare_api_frames("estimator", got, want)
+    assert len(got) == 10 and got[-1][1][0] > 0

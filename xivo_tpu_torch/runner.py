@@ -3,14 +3,16 @@
 ``pack_frame_inputs`` packs a host stream into numpy arrays (bit-equal to
 the reference's packing); ``run_batch`` moves B packed streams to the
 device and runs T frames as a Python loop over ``vio_frame`` with the
-batch axis written out. ``run_batch_image`` does the same for image mode
-over ``vio_frame_image``; ``run_batch_mapped`` and
+batch axis written out; ``make_sequence_runner`` is the same for one
+sequence without a batch axis. ``run_batch_image`` does the same for image
+mode over ``vio_frame_image``; ``run_batch_mapped`` and
 ``run_batch_image_mapped`` run the mapped steps (``map/integration.py``)
 with a map per sequence (``batch_maps``), drawing each frame's RANSAC
 uniforms on the device from a seeded ``torch.Generator``. With
 ``cfg.do_outlier_rejection`` every runner also draws each frame's
 homography uniforms (B, N_HYPS, NF) there, in the states' dtype, before
-the frame's RANSAC draws (the reference splits the tracker's key first);
+the frame's RANSAC draws (the reference splits the tracker's key first;
+``frame_draws`` keeps that order for the runners and the Estimator);
 ``hom_uniforms`` (B, T, N_HYPS, NF) replaces them. The loops read
 nothing back to the host until the last frame has been enqueued.
 
@@ -184,13 +186,14 @@ def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs,
               check: bool = True, seed: int = 0, hom_uniforms=None):
     """Run B sequences of T frames. fis: (B, T, ...) tensors on the
     states' device. Returns (final state, StepOutputs stacked (B, T, ...))."""
-    hom = _hom_draws(cfg, states, hom_uniforms, _generator(states, seed))
+    gen = draw_generator(states, seed)
 
     def loop():
         s = states
         outs = []
         for t in range(fis.frame_dt.shape[1]):
-            s, out = vio_frame(cfg, s, *(a[:, t] for a in fis), hom(t))
+            hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms)
+            s, out = vio_frame(cfg, s, *(a[:, t] for a in fis), hom)
             outs.append(out)
         return s, _stack(outs)
     return _checked(cfg, states.P.device, check, loop)
@@ -206,48 +209,75 @@ def make_batch_runner(cfg: VIOConfig):
     return run
 
 
+def make_sequence_runner(cfg: VIOConfig):
+    """(state, FrameInputs) -> (state, StepOutputs stacked (T, ...)) for
+    ONE sequence, without a batch axis: the state as ``init_state`` makes
+    it, the inputs on the host as ``pack_frame_inputs`` packs them.
+    ``make_batch_runner`` at B = 1: the batch axis is added, the frames
+    run, and the axis is taken off again."""
+    run_b = make_batch_runner(cfg)
+
+    def run(state: VIOState, fi: FrameInputs):
+        s, outs = run_b(tree_map(lambda x: x[None], state),
+                        FrameInputs(*(np.asarray(a)[None] for a in fi)))
+        return tree_map(lambda x: x[0], s), tree_map(lambda x: x[0], outs)
+    return run
+
+
 def run_batch_image(cfg: VIOConfig, states: VIOState, fes: FrontendState,
                     fis: ImageInputs, check: bool = True, seed: int = 0,
                     hom_uniforms=None):
     """Run B image-mode sequences of T frames. fis: (B, T, ...) tensors on
     the states' device. Returns (final state, final front-end state,
     StepOutputs stacked (B, T, ...))."""
-    hom = _hom_draws(cfg, states, hom_uniforms, _generator(states, seed))
+    gen = draw_generator(states, seed)
 
     def loop():
         s, f = states, fes
         outs = []
         for t in range(fis.frame_dt.shape[1]):
+            hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms)
             s, f, out = vio_frame_image(cfg, s, f, *(a[:, t] for a in fis),
-                                        hom(t))
+                                        hom)
             outs.append(out)
         return s, f, _stack(outs)
     return _checked(cfg, states.P.device, check, loop)
 
 
-def _generator(s: VIOState, seed: int):
+def draw_generator(s: VIOState, seed: int = 0) -> torch.Generator:
+    """The seeded generator on the states' device that a runner, or the
+    Estimator, takes a run's uniforms from (``frame_draws``)."""
     gen = torch.Generator(device=s.P.device)
     gen.manual_seed(seed)
     return gen
 
 
-def _draws(s: VIOState, shape, uniforms, gen):
-    """Frame t -> its uniforms (B, *shape): the given (B, T, *shape)
-    tensor's, or fresh ones from `gen` on the states' device, in their
-    dtype."""
-    if uniforms is not None:
-        return lambda t: uniforms[:, t]
-    shape = (s.P.shape[0],) + tuple(shape)
-    return lambda t: torch.rand(shape, generator=gen, dtype=s.P.dtype,
-                                device=s.P.device)
+def frame_draws(cfg: VIOConfig, s: VIOState, gen, mapped: bool, t: int = 0,
+                hom_uniforms=None, uniforms=None):
+    """Frame t's uniforms (homography, P3P), taken from `gen` in the one
+    order that every runner and the Estimator keep: the tracker's
+    homography draws (B, HOM_N_HYPS, NF) first, None where the config
+    rejects no outliers; then, for a `mapped` step, loop closure's P3P
+    RANSAC draws (B, N_HYPS, F), else None. Both in the states' dtype on
+    their device; a given (B, T, ...) `hom_uniforms` or `uniforms`
+    tensor's frame t replaces the draws of its kind."""
+    hom = p3p = None
+    if cfg.do_outlier_rejection:
+        hom = (_uniform(s, (HOM_N_HYPS, s.features.fid.shape[-1]), gen)
+               if hom_uniforms is None else hom_uniforms[:, t])
+    if mapped:
+        p3p = p3p_draws(cfg, s, gen) if uniforms is None else uniforms[:, t]
+    return hom, p3p
 
 
-def _hom_draws(cfg: VIOConfig, s: VIOState, uniforms, gen):
-    """Frame t -> its homography draws (B, N_HYPS, NF), or None where the
-    config rejects no outliers."""
-    if not cfg.do_outlier_rejection:
-        return lambda t: None
-    return _draws(s, (HOM_N_HYPS, s.features.fid.shape[-1]), uniforms, gen)
+def p3p_draws(cfg: VIOConfig, s: VIOState, gen):
+    """Loop closure's P3P RANSAC draws (B, N_HYPS, F) from `gen`."""
+    return _uniform(s, (N_HYPS, cfg.dims.n_features), gen)
+
+
+def _uniform(s: VIOState, shape, gen):
+    return torch.rand((s.P.shape[0],) + tuple(shape), generator=gen,
+                      dtype=s.P.dtype, device=s.P.device)
 
 
 def _stack(outs):
@@ -260,16 +290,15 @@ def _run_mapped(cfg, step, carry, fis, seed, uniforms, hom_uniforms,
     draws, homography draws)`` returns (*carry, StepOutputs, closure rows)
     for every frame t."""
     s0 = carry[0]
-    gen = _generator(s0, seed)
-    hom = _hom_draws(cfg, s0, hom_uniforms, gen)
-    draw = _draws(s0, (N_HYPS, cfg.dims.n_features), uniforms, gen)
+    gen = draw_generator(s0, seed)
 
     def loop():
         c = carry
         outs, lcs = [], []
         for t in range(fis.frame_dt.shape[1]):
-            h = hom(t)          # the tracker's draws come first
-            *c, out, n_lc = step(*c, *(a[:, t] for a in fis), draw(t), h)
+            h, u = frame_draws(cfg, c[0], gen, True, t, hom_uniforms,
+                               uniforms)
+            *c, out, n_lc = step(*c, *(a[:, t] for a in fis), u, h)
             outs.append(out)
             lcs.append(n_lc)
         return (*c, _stack(outs), torch.stack(lcs, dim=1))

@@ -66,6 +66,45 @@ def _generate_with_cfg_camera(pcw, cfg: VIOConfig, Rsc, Tsc, imw, imh,
         [xp[vis], z[vis, None]], axis=1)
 
 
+# tests/test_api.py::run_short's camera: 640 x 480 pixels
+RUN_SHORT_K = np.array([[275.0, 0, 320], [0, 275, 240], [0, 0, 1]])
+
+
+def run_short_messages(Rbc, Tbc, T=2.0, offset=0.0, corrupt_from=None,
+                       motion="gentle", n_points=300):
+    """``tests/test_api.py::run_short``'s stream as the Estimator's
+    messages, in delivery order: (t, "imu", gyro, accel) at 100 Hz and
+    (t, "pc", ids, xp_and_depths) at 20 Hz, the points of a RandomPCW seen
+    through RUN_SHORT_K from a camera at (Rbc, Tbc) on the body. Visual
+    stamps are moved by `offset` off the IMU grid (co-timed messages have
+    no defined order through a timestamp heap). From frame `corrupt_from`
+    on, 8 tracked pixels a frame are moved by 60-90 px
+    (``test_rejection_counters_wired``'s corruption)."""
+    imu = get_imu_sim(motion, T=T + 1, noise_accel=0, noise_gyro=0, seed=1)
+    pcw = RandomPCW([-10, 10], [-10, 10], [-5, 5], n_points=n_points,
+                    seed=0)
+    rng = np.random.default_rng(7)
+    packets = sorted([(t, 0) for t in np.arange(0, T, 0.01)]
+                     + [(t + offset, 1) for t in np.arange(0, T, 0.05)])
+    out = []
+    n_vis = 0
+    for t, kind in packets:
+        if kind == 0:
+            a, g = imu.meas(t)
+            out.append((t, "imu", g, a))
+            continue
+        Rsb, Tsb = imu.gsb(t - offset)
+        ids, xpd = pcw.generate_measurements(
+            Rsb @ Rbc, Rsb @ Tbc + Tsb, RUN_SHORT_K, 640, 480, 0.0)
+        if corrupt_from is not None and n_vis >= corrupt_from \
+                and len(xpd) > 20:
+            xpd = np.array(xpd, float)
+            xpd[:8, :2] += rng.uniform(60, 90, size=(8, 2))
+        out.append((t, "pc", ids, xpd))
+        n_vis += 1
+    return out
+
+
 def build_pcw_stream(cfg: VIOConfig, total_time=10.0, imu_dt=0.01,
                      vision_dt=0.05, motion="gentle", n_points=600,
                      noise_px=0.5, noise_accel=1e-4, noise_gyro=1e-5,
