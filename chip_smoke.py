@@ -206,6 +206,34 @@ phases 27-29 run last, each printing its time):
    poses, B4 and B5 4 times a frame, no other kernel); prints the ATE-RMSE
    against the mocap (``eval.metrics.ate_rmse``), the pairs associated
    and frames/s, with no bound on them.
+slice 13, the other filter options (phases 30-31 run after phase 29):
+30. ``sim/configs.options_config()``: PCW_CFG with initial intrinsics
+   stds at the default Dims (D = 228), float32, the square-root form,
+   fast propagation, with OOS updates, FEJ, the correlated init, Huber,
+   1-point RANSAC, OC-EKF on both sides, depth refinement and online
+   camera calibration on; the bench stream with outliers planted from
+   frame 10 on (10 % of the measurements moved 8-20 px,
+   ``sim/stream.corrupt_measurements``, the same on both devices).
+   (a) The CUDA path against the CPU path on B = 2 for OPT_CMP_FRAMES
+   frames: poses within 1e-3 m, every count of StepOutputs equal frame by
+   frame (the 1-point RANSAC and MH rejects included), 1-point RANSAC
+   rejects > 0. (b) The main run: B = 256, OPT_FRAMES frames, counters
+   at 0 and the sync debug mode on; finite poses, sequence 0's ATE-RMSE
+   below 0.15 m (``tests/test_sqrt_form.py:223``), the 1-point RANSAC
+   rejects summed > 0, ``validate_state`` of sequence 0's final state
+   empty, B1 once and B2, B3 four times a frame (the instate downdate and
+   1-point RANSAC's partial one at 60, OOS's two 120-row blocks); prints
+   the throughput and peak memory. (c) B1-B3 held against their plain
+   versions (``hold``) on the inputs of frames 10-13 of the main path;
+31. batched propagation, ``config_from_json(PCW_CFG,
+   propagation_mode="batched")`` (the full form, float32), which
+   ``runner.fit_substeps`` leaves as it is: CUDA against CPU on B = 2 for
+   BAT_CMP_FRAMES frames (poses 1e-3 m, counts equal); the main run at
+   B = 64 for BAT_FRAMES frames with the depths from the simulation,
+   counted, no sync: ATE-RMSE of sequence 0 below 0.10 m, no kernel
+   launched; then ``filter/vi_init.vi_bootstrap`` on the stream's first
+   VI_WINDOW frames, depth-aided and visual-only, on both devices:
+   ``cond_ok`` and v0, g within 1e-3 of the CPU's.
 Phase 9 also profiles five frames of phase 21's path (frames 30-34), with
 the IMU-sample updates and the Joseph updates among its stages, and times
 five frames of phase 24's (frames 30-34) with a synchronize around each
@@ -349,6 +377,23 @@ TUMVI_CMP_FRAMES, TUMVI_CMP_OPEN_FRAMES, TUMVI_ACC_FRAMES = 10, 20, 20
 TUMVI_CAPTURE_FRAMES = 3
 TUMVI_COUNTS = ("num_tracked", "num_instate_features", "num_instate_groups",
                 "num_oos_dropped", "num_tracker_outlier_rejected")
+# slice 13, the other filter options (phase 30: sim/configs.OPTIONS on
+# the square-root path; CUDA against CPU on B = 2 for OPT_CMP_FRAMES
+# frames, the main run at B for OPT_FRAMES, B1-B3 held on the inputs of
+# its first OPT_CAPTURE_FRAMES) and batched propagation (phase 31, the
+# full form; CUDA against CPU on B = 2 for BAT_CMP_FRAMES, the main run at
+# BAT_B for BAT_FRAMES, vi_bootstrap on a VI_WINDOW-frame window). The
+# options' stream has outliers planted: from frame 10 on, 10 % of the
+# measurements moved 8-20 px (sim/stream.corrupt_measurements), so that
+# Huber, 1-point RANSAC and the MH gate have work; the comparison runs 5
+# frames past that start. Their ATE bound is tests/test_sqrt_form.py:223's
+OPT_FRAMES, OPT_CMP_FRAMES, OPT_CAPTURE_FRAMES = 40, 15, 14
+OPT_ATE_BOUND, OPT_PATH_TOL = 0.15, 1e-3
+OPT_CORRUPT = dict(seed=13, share=0.1, px=(8.0, 20.0), start=10)
+OPT_COUNTS = COUNT_FIELDS + ("num_oneptransac_rejected",
+                             "num_tracker_outlier_rejected")
+BAT_B, BAT_FRAMES, BAT_CMP_FRAMES = 64, 20, 10
+BAT_ATE_BOUND, BAT_PATH_TOL, VI_WINDOW, VI_TOL = 0.10, 1e-3, 16, 1e-3
 # B6's bound by operations: the least work a (query, entry) pair's
 # distance needs, whatever the kernel does. 8 XORs; carry-save adders
 # (a sum and a carry, one 3-input logic operation each) over seven of the
@@ -380,11 +425,14 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def make_run(cfg, torch, device, batch, frames=None):
-    """(states, inputs, gt) for `batch` copies of the PCW bench stream."""
+def make_run(cfg, torch, device, batch, frames=None, edit=None):
+    """(states, inputs, gt) for `batch` copies of the PCW bench stream
+    (`edit` maps the packed stream, e.g. to plant outliers)."""
     from xivo_tpu_torch.runner import inputs_to_device
     from xivo_tpu_torch.sim.stream import build_pcw_stream
     fi, gt = build_pcw_stream(cfg, total_time=TOTAL_TIME, noise_px=0.25)
+    if edit is not None:
+        fi = edit(fi)
     if frames is not None:
         fi = type(fi)(*(a[:frames] for a in fi))
     fib = inputs_to_device(type(fi)(*(
@@ -2543,6 +2591,201 @@ def tumvi_api_phase(torch, kernels, lko):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the other filter options and batched propagation
+# ---------------------------------------------------------------------------
+
+def corrupted(fi):
+    """The options' stream: outliers planted from OPT_CORRUPT['start']."""
+    from xivo_tpu_torch.sim.stream import corrupt_measurements
+    return corrupt_measurements(fi, **OPT_CORRUPT)
+
+
+def compare_devices(torch, label, cfg, frames, counts, tol, edit=None):
+    """`cfg`'s CUDA path against its CPU path (plain versions) at full
+    width on B = 2: poses within `tol`, the `counts` of StepOutputs equal
+    frame by frame. Returns the CPU run's outputs."""
+    from xivo_tpu_torch.runner import run_batch
+    res = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        s, fib, _ = make_run(cfg, torch, dev, 2, frames=frames, edit=edit)
+        res[dev] = run_batch(cfg, s, fib)[1]
+        print(f"{label} {dev} path: {frames} frames in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    og, oc = res[DEV], res["cpu"]
+    dpos = float((og.Tsb.cpu() - oc.Tsb).abs().max())
+    differ = [n for n in counts
+              if not torch.equal(getattr(og, n).cpu(), getattr(oc, n))]
+    print(f"{label} cuda vs cpu path, {frames} frames: max |dTsb| "
+          f"{dpos:.3e} m; 1-point RANSAC rejects of sequence 0 cuda "
+          f"{og.num_oneptransac_rejected[0].tolist()} cpu "
+          f"{oc.num_oneptransac_rejected[0].tolist()}; MH rejects cuda "
+          f"{og.num_mh_rejected[0].tolist()}; counts "
+          f"{'equal' if not differ else f'DIFFER: {differ}'}", flush=True)
+    if not (dpos < tol and not differ):
+        raise AssertionError(f"the CUDA {label} path disagrees with its CPU "
+                             "path")
+    return oc
+
+
+def options_phase(torch, lc, others):
+    """Phase 30: every filter option on the square-root path at full
+    width. Returns the main run's launches and B1-B3's checks on its
+    inputs."""
+    from xivo_tpu_torch.filter.validate import validate_state
+    from xivo_tpu_torch.runner import run_batch
+    from xivo_tpu_torch.sim.configs import OPTIONS, options_config
+    cfg = options_config()
+    assert (cfg.dims.full, cfg.dtype, cfg.covariance_form) == (
+        228, "float32", "sqrt")
+    kernels = lc.KERNELS + others
+
+    # (a) the CUDA path against the CPU path, outliers included
+    oc = compare_devices(torch, "options", cfg, OPT_CMP_FRAMES, OPT_COUNTS,
+                         OPT_PATH_TOL, corrupted)
+    if not int(oc.num_oneptransac_rejected.sum()) > 0:
+        raise AssertionError("1-point RANSAC rejected nothing in the "
+                             "comparison")
+
+    # (b) the main run, counted, no sync
+    s, fib, gt = make_run(cfg, torch, DEV, B, frames=OPT_FRAMES,
+                          edit=corrupted)
+    T = OPT_FRAMES
+    (s, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch(cfg, s, fib))
+    Tsb = outs.Tsb.cpu().numpy()
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    err = np.linalg.norm(Tsb - gt["Tsb"][None, :T], axis=2)
+    ates = np.sqrt(np.mean(err ** 2, axis=1))
+    n_1pt = int(outs.num_oneptransac_rejected.sum())
+    errs = validate_state(cfg, s, 0)
+    print(f"options main path ({sorted(OPTIONS)}): B={B} T={T} "
+          f"D={cfg.dims.full} wall {wall:.3f} s sequence-frames/s "
+          f"{B * T / wall:.1f} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{launches} ({ {k: v / T for k, v in launches.items()} } a "
+          f"frame)", flush=True)
+    print(f"options main path: 1-point RANSAC rejects {n_1pt} (all "
+          f"sequences; sequence 0 "
+          f"{outs.num_oneptransac_rejected[0].tolist()}), MH rejects "
+          f"{int(outs.num_mh_rejected.sum())}; sequence 0: ATE-RMSE "
+          f"{ates[0]:.5f} m (bound {OPT_ATE_BOUND}), final error "
+          f"{err[0, -1]:.5f} m, intrinsics {s.cam[0, :4].tolist()}, "
+          f"validate_state {errs}; all sequences: ATE-RMSE "
+          f"{ates.min():.5f}-{ates.max():.5f} m", flush=True)
+    if not (ates[0] < OPT_ATE_BOUND and n_1pt > 0 and errs == []):
+        raise AssertionError("options path outside its bound, no 1-point "
+                             "RANSAC reject, or an invariant broken")
+    expect = {k.name: 0 for k in others}
+    expect.update({"chol_lanes": T, "chol_inv_lanes": 4 * T,
+                   "tri_inv_lanes": 4 * T})
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+
+    # (c) B1-B3 on the inputs of this path's frames, past the outliers'
+    # start (the instate and 1-point downdates at 60, the OOS blocks at
+    # 120, the recompression at 228)
+    s, fib, _ = make_run(cfg, torch, DEV, B, frames=OPT_CAPTURE_FRAMES,
+                         edit=corrupted)
+    names = ["chol_lanes", "chol_inv_lanes", "tri_inv_lanes"]
+    with Recorder(torch, lc, names) as seen:
+        run_batch(cfg, s, fib)
+    torch.cuda.synchronize()
+    pairs = {"chol_lanes": (lc.chol_lanes, lc.chol_plain),
+             "chol_inv_lanes": (lc.chol_inv_lanes, lc.chol_inv_plain),
+             "tri_inv_lanes": (lc.tri_inv_lanes, lc.tri_inv_plain)}
+    start = OPT_CORRUPT["start"]
+    checks = {}
+    for name, (kernel, plain) in pairs.items():
+        per_frame = len(seen[name]) // OPT_CAPTURE_FRAMES
+        inputs = [a[0] for a in seen[name][start * per_frame:]]
+        err, rel, rel_plain, use, _ = hold(torch, kernel, plain,
+                                           [("options", X) for X in inputs])
+        shapes = sorted({X.shape[-1] for X in inputs})
+        print(f"kernel {name} on the options path (frames {start}-"
+              f"{OPT_CAPTURE_FRAMES - 1}, {len(inputs)} inputs, m in "
+              f"{shapes}): row-relative error {rel['options']:.3e} (plain "
+              f"float32 vs float64 {rel_plain:.3e}), worst error / limit "
+              f"{use:.3f}, max_abs_err {err:.3e}", flush=True)
+        if use > 1.0:
+            raise AssertionError(f"{name} on the options path: error above "
+                                 f"its limit ({use:.3f} x)")
+        checks[name] = dict(max_abs_err=err, row_rel_err=rel["options"],
+                            use=use, inputs=len(inputs), m=shapes)
+    del seen
+    return launches, checks
+
+
+def batched_phase(torch, kernels):
+    """Phase 31: batched propagation (the full form) and the closed-form
+    VI bootstrap. Returns the main run's launches."""
+    from xivo_tpu_torch.filter.config import config_from_json
+    from xivo_tpu_torch.filter.vi_init import vi_bootstrap
+    from xivo_tpu_torch.runner import fit_substeps, run_batch
+    from xivo_tpu_torch.sim.configs import PCW_CFG
+    from xivo_tpu_torch.sim.stream import build_pcw_stream
+    cfg = config_from_json(PCW_CFG, propagation_mode="batched")
+    assert (cfg.dims.full, cfg.dtype, cfg.covariance_form) == (
+        228, "float32", "full")
+    fi, gt = build_pcw_stream(cfg, total_time=TOTAL_TIME, noise_px=0.25)
+    assert fit_substeps(cfg, fi) is cfg
+    compare_devices(torch, "batched propagation", cfg, BAT_CMP_FRAMES,
+                    COUNT_FIELDS, BAT_PATH_TOL)
+
+    cfg = config_from_json(PCW_CFG, propagation_mode="batched",
+                           sim_initialize_depths=True)
+    s, fib, gt = make_run(cfg, torch, DEV, BAT_B, frames=BAT_FRAMES)
+    T = BAT_FRAMES
+    (s, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch(cfg, s, fib))
+    Tsb = outs.Tsb.cpu().numpy()
+    if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    err = np.linalg.norm(Tsb - gt["Tsb"][None, :T], axis=2)
+    ates = np.sqrt(np.mean(err ** 2, axis=1))
+    print(f"batched propagation main path: B={BAT_B} T={T} D={cfg.dims.full}"
+          f" (total_substeps {cfg.total_substeps}, max_substeps "
+          f"{cfg.max_substeps}; full covariance) wall {wall:.3f} s "
+          f"sequence-frames/s {BAT_B * T / wall:.1f} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{launches}; sequence 0: ATE-RMSE {ates[0]:.5f} m (bound "
+          f"{BAT_ATE_BOUND}); all sequences: ATE-RMSE {ates.min():.5f}-"
+          f"{ates.max():.5f} m", flush=True)
+    if not ates[0] < BAT_ATE_BOUND:
+        raise AssertionError(f"ATE {ates[0]} >= {BAT_ATE_BOUND}")
+    if any(launches.values()):
+        raise AssertionError(f"launches {launches}, expected none")
+
+    # vi_bootstrap on a window of the same stream, both devices
+    res = {}
+    for dev in (DEV, "cpu"):
+        w = [torch.from_numpy(np.ascontiguousarray(a[:VI_WINDOW])).to(dev)
+             for a in fi]
+        intrin = torch.tensor(list(cfg.cam_params[2:6]) + [0.0] * 5,
+                              dtype=w[0].dtype).to(dev)
+        for depth in (True, False):
+            t0 = time.time()
+            r = vi_bootstrap(cfg, intrin, *w[:6], w[7],
+                             *([w[6]] if depth else []))
+            ok = bool(r.cond_ok)
+            res[dev, depth] = (r.v0.cpu().numpy(), r.g_b0.cpu().numpy(), ok,
+                               time.time() - t0)
+    for depth in (True, False):
+        (vg, gg, okg, tg), (vc, gc, okc, tc) = res[DEV, depth], \
+            res["cpu", depth]
+        dv, dg = float(np.abs(vg - vc).max()), float(np.abs(gg - gc).max())
+        print(f"vi_bootstrap ({'depth-aided' if depth else 'visual-only'}, "
+              f"{VI_WINDOW} frames): cuda v0 {vg.tolist()} g {gg.tolist()} "
+              f"cond_ok {okg} ({tg:.2f} s); cpu cond_ok {okc} ({tc:.2f} s); "
+              f"|dv0| {dv:.3e} |dg| {dg:.3e}", flush=True)
+        if not (okg and okc and dv < VI_TOL and dg < VI_TOL):
+            raise AssertionError("vi_bootstrap: ill-conditioned, or CUDA "
+                                 "disagrees with the CPU")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2595,8 +2838,16 @@ def main():
         torch, all_kernels, lc)
     asl_launches = asl_replay_phase(torch, all_kernels, lko)
     tumvi_api_launches = tumvi_api_phase(torch, all_kernels, lko)
+    print(f"API phases done: {time.time() - t_start:.1f} s", flush=True)
+    opt_launches, opt_checks = options_phase(
+        torch, lc, lko.KERNELS + hm.KERNELS + chol.KERNELS)
+    print(f"options phase done: {time.time() - t_start:.1f} s", flush=True)
+    bat_launches = batched_phase(torch, all_kernels)
+    print(f"batched propagation phase done: {time.time() - t_start:.1f} s",
+          flush=True)
     for k in kernels:
         k["oos_shape"] = oos_shapes[k["name"]]
+        k["options_path"] = opt_checks[k["name"]]
         if k["name"] == "chol_lanes":
             k["full_form_compression"] = full_b1
     kernels += lk_kernels + [hm_kernel, chol_entry]
@@ -2620,6 +2871,8 @@ def main():
         k["launches_api_sqrt_path"] = api_sqrt_launches[name]
         k["launches_asl_replay_path"] = asl_launches[name]
         k["launches_tumvi_api_path"] = tumvi_api_launches[name]
+        k["launches_options_sqrt_path"] = opt_launches[name]
+        k["launches_batched_path"] = bat_launches[name]
         if name in tumvi_checks:
             k["tumvi_shape"] = tumvi_checks[name]
     print(f"elapsed: {time.time() - t_start:.1f} s", flush=True)

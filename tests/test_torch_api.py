@@ -22,14 +22,12 @@ within 1e-8 m at every frame, and the counts and
 Against the port itself, bit for bit where the same arithmetic runs:
 ``make_sequence_runner`` against ``run_batch``; checkpoint/resume; the
 straggler drop; tracker-only mode; ``EstimatorProcess`` against the
-synchronous estimator; and the homography counter on
+synchronous estimator; and the rejection counters on
 ``tests/test_api.py::test_rejection_counters_wired``'s corrupted frames
-(with ``do_outlier_rejection`` alone: ``use_1pt_RANSAC`` comes with
-ROADMAP A.16b). The mapped and image estimators against their runners
-are in ``test_torch_api_runners.py``.
+(``do_outlier_rejection`` and ``use_1pt_RANSAC``) against the JAX
+``Estimator``, frame by frame. The mapped and image estimators against
+their runners are in ``test_torch_api_runners.py``.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -48,6 +46,7 @@ from xivo_tpu_torch.sim.pcw import RandomPCW
 from xivo_tpu_torch.sim.stream import RUN_SHORT_K, run_short_messages
 
 from test_api import PYXIVO_METHODS
+from test_torch_homography import tracker_draws
 from test_torch_pipeline import TINY, plain
 
 torch.set_num_threads(2)
@@ -295,22 +294,43 @@ def test_process_matches_synchronous():
 
 
 def test_homography_counter_on_corrupted_frames():
-    """num_tracker_outlier_rejected counts the homography gate's rejects
-    of the corrupted tracked pixels (``test_rejection_counters_wired``
-    with ``do_outlier_rejection``; its ``use_1pt_RANSAC`` comes with
-    ROADMAP A.16b)."""
-    tc = cfgs(**SQRT, do_outlier_rejection=True)[1]
-    with pytest.raises(NotImplementedError, match="A.16"):
-        Estimator(dataclasses.replace(tc, use_1pt_RANSAC=True), device="cpu")
-    est = Estimator(tc, device="cpu")
-    counts = []
-    est_run = est._run_frame
+    """The rejection counters against the JAX ``Estimator`` on
+    ``tests/test_api.py::test_rejection_counters_wired``'s corrupted
+    frames, with its ``do_outlier_rejection`` and ``use_1pt_RANSAC``: the
+    port takes the homography draws the reference takes from its key
+    (``test_torch_homography.tracker_draws``), and then both counters
+    equal the reference's frame by frame. The homography gate rejects the
+    corrupted pixels from frame 5 on and nothing before; what it leaves
+    are within 3 px, below the 1-point RANSAC's 5 px split, so that both
+    packages count no 1-point rejection here."""
+    jc, tc = cfgs(**SQRT, do_outlier_rejection=True, use_1pt_RANSAC=True)
+    msgs = messages(tc, T=1.5, corrupt_from=5)
 
-    def run(*args):
-        est_run(*args)
-        counts.append(est.num_tracker_outlier_rejected())
-        assert est.num_oneptransac_rejected() == 0
-    est._run_frame = run
-    feed(est, messages(tc, T=1.5, corrupt_from=5))
-    assert len(counts) == 30
-    assert sum(counts[:5]) == 0 and sum(counts[5:]) > 0, counts
+    def counted(est, before=None):
+        counts = []
+        run = est._run_frame
+
+        def recorded(*args):
+            if before is not None:
+                before()
+            run(*args)
+            counts.append((est.num_tracker_outlier_rejected(),
+                           est.num_oneptransac_rejected()))
+        est._run_frame = recorded
+        return counts
+
+    jest = JaxEstimator(jc)
+    keys = []
+    want = counted(jest, lambda: keys.append(np.asarray(jest.state.key)))
+    feed(jest, msgs)
+    est = Estimator(tc, device="cpu")
+    draws = iter(torch.tensor(tracker_draws(np.stack(keys),
+                                            tc.dims.nf_rows)[1]))
+    est._draws = lambda mapped=False: (next(draws)[None], None)
+    got = counted(est)
+    feed(est, msgs)
+    assert len(got) == 30 and got == want, (got, want)
+    trk = [c[0] for c in got]
+    assert sum(trk[:5]) == 0 and sum(trk[5:]) > 0, trk
+    assert all(c[1] == 0 for c in got), got
+    np.testing.assert_allclose(est.gsb()[1], jest.gsb()[1], rtol=0, atol=TOL)

@@ -220,6 +220,9 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.map.bigmap, xivo_tpu_torch.ba.core\n"
         "import xivo_tpu_torch.ops.hamming, xivo_tpu_torch.ops.chol\n"
         "import xivo_tpu_torch.filter.oos, xivo_tpu_torch.filter.init_cov\n"
+        "import xivo_tpu_torch.filter.refine, xivo_tpu_torch.filter.validate\n"
+        "import xivo_tpu_torch.filter.propagate_batched\n"
+        "import xivo_tpu_torch.filter.vi_init\n"
         "import xivo_tpu_torch.tools.profile_linalg\n"
         "import xivo_tpu_torch.tools.chol_breakdown\n"
         "import xivo_tpu_torch.tools.hamming_breakdown\n"
@@ -266,11 +269,6 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"use_OOS": True, "use_oc_meas": True}, "A.16"),
-    ("use_depth_opt", "A.16"), ("use_1pt_RANSAC", "A.16"),
-    ("use_huber", "A.16"), ("use_oc", "A.16"),
-    ("online_camera_calib", "A.16"),
-    ({"propagation_mode": "batched", "covariance_form": "full"}, "A.16"),
     (("tracker_type", "MATCH"), "A.12"), (("detector", "GFTT"), "A.12"),
     (("descriptor_type", "orb"), "A.12")])
 def test_options_outside_the_slice_raise(option, item):
@@ -293,3 +291,57 @@ def test_options_outside_the_slice_raise(option, item):
         vio_frame_image(cfg, None, None, *([None] * 5))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tracker_only_frame(cfg, None, None, None)
+
+
+FILTER_OPTIONS = {
+    "use_oc_meas_with_OOS": {"use_OOS": True, "use_oc_meas": True},
+    "use_depth_opt": {"use_depth_opt": True},
+    "use_1pt_RANSAC": {"use_1pt_RANSAC": True},
+    "use_huber": {"use_huber": True},
+    "use_oc": {"use_oc": True},
+    "online_camera_calib": {"online_camera_calib": True},
+    "batched": {"propagation_mode": "batched", "covariance_form": "full"}}
+
+
+@pytest.mark.parametrize("name", sorted(FILTER_OPTIONS))
+def test_filter_options_run_from_every_entry_point(name):
+    """The filter options (ROADMAP A.16b) are accepted by every entry
+    point: states build, and two frames of ``vio_frame`` and of
+    ``vio_frame_mapped`` and one of ``vio_frame_image`` (IMG_CFG's camera
+    at the tiny Dims) run to finite poses; ``tracker_only_frame``, which
+    runs no filter, takes the config too."""
+    from xivo_tpu_torch.filter.pipeline import vio_frame
+    from xivo_tpu_torch.frontend.tracker import (tracker_only_frame,
+                                                 vio_frame_image)
+    from xivo_tpu_torch.map.integration import vio_frame_mapped
+    from xivo_tpu_torch.runner import (batch_frontend_states, batch_maps,
+                                       draw_generator, p3p_draws)
+    from xivo_tpu_torch.sim.configs import IMG_CFG
+    from xivo_tpu_torch.sim.image_stream import build_image_stream
+    over = FILTER_OPTIONS[name]
+    cfg = dataclasses.replace(torch_cfg(), **over)
+    fi, gt = build_pcw_stream(cfg, seed=1, total_time=0.1, noise_px=0.25)
+    s = sm = batch_states(cfg, 2, device="cpu")
+    ms = batch_maps(64, 2, device="cpu", dtype=torch.float64)
+    gen = draw_generator(s)
+    for t in range(2):
+        frame = [torch.from_numpy(np.stack([a[t]] * 2)) for a in fi]
+        s, out = vio_frame(cfg, s, *frame)
+        sm, ms, out_m, _ = vio_frame_mapped(cfg, sm, ms, *frame,
+                                            p3p_draws(cfg, sm, gen))
+    for o, st in ((out, s), (out_m, sm)):
+        assert torch.isfinite(o.Tsb).all() and torch.isfinite(st.P).all()
+
+    icfg = config_from_json(IMG_CFG, dims=Dims(*TINY), dtype="float64",
+                            **dict(SLICE, **over))
+    ii, _ = build_image_stream(icfg, total_time=0.09, n_points=300,
+                               world_seed=0, imu_T=3.0)
+    s = batch_states(icfg, 2, device="cpu")
+    fes = batch_frontend_states(icfg, 2, device="cpu")
+    frame = [torch.from_numpy(np.ascontiguousarray(np.stack([a[0]] * 2)))
+             for a in ii]
+    s1, fes1, out = vio_frame_image(icfg, s, fes, *frame)
+    assert torch.isfinite(out.Tsb).all()
+    assert int(s1.features.active.sum()) > 0
+    _, fes2 = tracker_only_frame(icfg, s, fes, frame[-1])
+    assert bool(fes2.initialized.all())

@@ -50,9 +50,7 @@ def test_shipped_tumvi_configs_are_supported(name):
     cfg = config_from_json(shipped(name))
     assert (cfg.cam_model, cfg.do_outlier_rejection) == ("equidistant", True)
     check_supported(cfg)
-    for over, item in (({"online_camera_calib": True}, "A.16"),
-                       ({"use_1pt_RANSAC": True}, "A.16"),
-                       ({"tracker_type": "MATCH"}, "A.12"),
+    for over, item in (({"tracker_type": "MATCH"}, "A.12"),
                        ({"detector": "GFTT"}, "A.12"),
                        ({"descriptor_type": "orb"}, "A.12")):
         bad = dataclasses.replace(cfg, **over)

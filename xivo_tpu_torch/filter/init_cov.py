@@ -9,9 +9,8 @@ features then applies the congruence P' = [[I], [J]] P [[I], [J]]^T (plus
 the subfilter blocks already placed), which on the square-root factor is
 a plain row transform: the new feature rows gain J S[o-rows]. On a dense
 P the rows and columns gain J P[o, :] and the new-new blocks
-J_i P_oo J_j^T, then P is symmetrized. Online camera calibration is
-refused (``state.check_supported``), so the intrinsics columns of M are
-zero here.
+J_i P_oo J_j^T, then P is symmetrized. The intrinsics columns of M are
+zero unless ``online_camera_calib`` is on.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ import torch
 
 from ..cam import models as cam_mod
 from ..geom import so3
-from ..ops.dense import constant, take_rows
+from ..ops.dense import adjugate3, constant, take_rows
 from . import layout as L
 from .config import VIOConfig
 from .features import project_persp, unproject_logz
@@ -145,7 +144,7 @@ def _obs_blocks_batched(cfg: VIOConfig, s: VIOState, rows):
     seen = seen & (grow >= 0)[:, None] & ref_ok[..., None] \
         & (growc[:, None, :] != gref[..., None])            # (B, n, G)
 
-    Hx, Hc, Hg, Hr, _, cheir = _jac_blocks_fg(
+    Hx, Hc, Hg, Hr, dint, cheir = _jac_blocks_fg(
         kind, s.cam, s.X.Rbc, s.X.Tbc, take_rows(gr.Rsb, gref),
         take_rows(gr.Tsb, gref), take_rows(gr.Rsb, growc),
         take_rows(gr.Tsb, growc), x_s)
@@ -160,7 +159,11 @@ def _obs_blocks_batched(cfg: VIOConfig, s: VIOState, rows):
 
     N = normal(Hx)
     M_ext = normal(Hc)
-    M_cam = torch.zeros((B, n, 3, L.NCAM), dtype=dtype, device=s.P.device)
+    if cfg.online_camera_calib:
+        M_cam = normal(dint)
+    else:
+        M_cam = torch.zeros((B, n, 3, L.NCAM), dtype=dtype,
+                            device=s.P.device)
     # blockwise group columns: Hx^T Hg lands in the observing slot's
     # block, the reference block in the ref slot's
     M_obs = W * torch.einsum("bfgri,bfgrj->bfgij", Hxw, Hg * w)
@@ -173,10 +176,16 @@ def _obs_blocks_batched(cfg: VIOConfig, s: VIOState, rows):
     # pose-independent, pins (X/Z, Y/Z) and keeps N well-posed
     Xc, dXc_dx = unproject_logz(x_s)
     xcn_r, dxcn_dXc = project_persp(Xc)
-    _, dxp_dxcn_r, _ = cam_mod.project_with_jac(kind, s.cam[:, None], xcn_r)
+    _, dxp_dxcn_r, dint_r = cam_mod.project_with_jac(kind, s.cam[:, None],
+                                                     xcn_r)
     Hx_r = (dxp_dxcn_r @ dxcn_dXc @ dXc_dx) \
         * ref_ok.to(dtype)[..., None, None]
     N = N + W * torch.einsum("bfri,bfrj->bfij", Hx_r, Hx_r)
+    if cfg.online_camera_calib:
+        # the anchor observation couples to the intrinsics alone
+        M_cam_r = W * torch.einsum("bfri,bfrj->bfij", Hx_r, dint_r)
+        M = torch.cat([M[..., :6], M[..., 6:6 + L.NCAM] + M_cam_r,
+                       M[..., 6 + L.NCAM:]], dim=-1)
     return N, M
 
 
@@ -197,16 +206,7 @@ def _init_jacobians(cfg: VIOConfig, s: VIOState, rows, valid):
             + Mm[..., 0, 2] * (Mm[..., 1, 0] * Mm[..., 2, 1]
                                - Mm[..., 1, 1] * Mm[..., 2, 0]))
     use = valid & (Mm[..., 0, 0] > 0) & (det2 > 0) & (det3 > 0)
-    Nr = N + (1e-6 * tr + 1e-12)[..., None, None] * eye3
-    a, b, c = Nr[..., 0, 0], Nr[..., 0, 1], Nr[..., 0, 2]
-    d_, e, f = Nr[..., 1, 0], Nr[..., 1, 1], Nr[..., 1, 2]
-    g, h, i = Nr[..., 2, 0], Nr[..., 2, 1], Nr[..., 2, 2]
-    co = torch.stack([
-        torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1),
-        torch.stack([f * g - d_ * i, a * i - c * g, c * d_ - a * f], -1),
-        torch.stack([d_ * h - e * g, b * g - a * h, a * e - b * d_], -1)],
-        dim=-2)
-    det = a * co[..., 0, 0] + b * co[..., 1, 0] + c * co[..., 2, 0]
+    co, det = adjugate3(N + (1e-6 * tr + 1e-12)[..., None, None] * eye3)
     Ainv = co / torch.where(torch.abs(det) < 1e-30, 1e-30, det)[..., None,
                                                                   None]
     J = -(Ainv @ M)

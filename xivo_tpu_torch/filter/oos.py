@@ -11,8 +11,8 @@ R = oos_meas_std^2: a factor downdate on the square-root form, a Joseph
 update on the dense form. A stack taller than
 ``compression_trigger_ratio`` x D is first compressed, in either form, by
 one masked Cholesky (kernel B1 at (D + 1)^2) of its bordered Gram.
-``use_oc_meas``, which would project these rows too, is refused with the
-other filter options (``state.check_supported``).
+With ``use_oc_meas`` the rows are first projected onto the observable
+subspace, as the instate rows are (``update.oc_project_rows``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ from .features import project_persp, unproject_logz
 from .propagate import mv
 from .sqrt_form import sqrt_update
 from .state import VIOState, where_state
-from .update import absorb_error, joseph_rows
+from .update import (absorb_error, joseph_rows, oc_nullspace,
+                     oc_project_rows)
 
 
 def _householder_nullspace(Hf, Hx, inn):
@@ -276,6 +277,11 @@ def oos_update(cfg: VIOConfig, s: VIOState, candidate_rows):
     Hm = Ho * rv[..., None].to(dtype)
     innm = inn_o * rv.to(dtype)
     diagRm = torch.where(rv, Roos, 1.0).to(dtype)
+    if cfg.use_oc_meas:
+        # the group blocks here sit at the current estimates, which drift
+        # between updates: forcing H N(fej) = 0 keeps these rows from
+        # leaking global translation / yaw information
+        Hm = oc_project_rows(Hm, oc_nullspace(cfg, s))
 
     if cfg.use_compression and Hm.shape[-2] > int(
             cfg.compression_trigger_ratio * D):

@@ -22,7 +22,8 @@ from . import layout as L
 from .config import VIOConfig
 from .features import (bcast_X, change_owner, subfilter_update_table,
                        triangulate_two_view_checked)
-from .propagate import (imu_sample_update, propagate_interval_fast,
+from .propagate import (imu_sample_update, oc_correct_phi,
+                        propagate_interval_fast,
                         propagate_interval_fast_static, propagate_state,
                         qmodel_diag, with_motion_block)
 from .sqrt_form import (chol3x3, cov_diag, factor_propagate_absorb,
@@ -32,8 +33,8 @@ from .state import (FS_CREATED, FS_EMPTY, FS_GAUGE, FS_INITIALIZING,
                     TS_TRACKED, FeatureTable, VIOState, check_supported,
                     where_state)
 from .update import (absorb_error, build_stacked_jacobian,
-                     measurement_update, mh_distances, mh_gate,
-                     zero_state_entries)
+                     huber_robustify_R, measurement_update, mh_distances,
+                     mh_gate, zero_state_entries)
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +420,26 @@ def _add_feature_blocks(cfg: VIOConfig, P, fr: FeatureTable, new_slot_mask,
     return torch.cat([P[:, :fb], lower], dim=1)
 
 
+def _refine_candidate_depths(cfg: VIOConfig, s: VIOState) -> VIOState:
+    """use_depth_opt: Gauss-Newton refinement of the admission candidates'
+    depths over their observations; candidates that fail are destroyed
+    (src/manager.cpp:386-404)."""
+    from .refine import refine_depth
+    fr, gr = s.features, s.groups
+    NG = gr.gid.shape[-1]
+    grow = torch.clamp(fr.ref, 0, NG - 1)
+    obs_mask = fr.adj & ~_onehot_rows(grow, NG) & gr.active[:, None, :]
+    do = _candidate_mask(cfg, s) & (torch.sum(obs_mask, dim=-1) >= 1)
+    xn, Pn, ok = refine_depth(
+        cam_mod.MODEL_IDS[cfg.cam_model], s.cam, s.X, take_rows(gr.Rsb, grow),
+        take_rows(gr.Tsb, grow), gr.Rsb, gr.Tsb, obs_mask, fr.adj_xp, fr.x,
+        fr.Psub, cfg.refinement)
+    good = do & ok
+    fr = fr._replace(x=_where(good, xn, fr.x),
+                     Psub=_where(good, Pn, fr.Psub))
+    return s._replace(features=_clear_feature_rows(fr, do & ~ok))
+
+
 def _candidate_mask(cfg: VIOConfig, s: VIOState):
     fr = s.features
     strict = (s.vision_counter >= cfg.strict_criteria_timesteps)[:, None]
@@ -617,6 +638,67 @@ def _discard_affected_groups_impl(cfg: VIOConfig, s: VIOState, affected):
     changed = torch.any(discard, -1) | torch.any(transfer, -1) \
         | torch.any(failed, -1)
     return s._replace(groups=gr, features=fr), changed
+
+
+def _one_pt_ransac(cfg: VIOConfig, s: VIOState, inlier_slots):
+    """Low-innovation partial update and chi-square rescue of the rest
+    (Estimator::OnePointRANSAC, src/update.cpp:213-393, whose hypothesis
+    loop never applies its hypothesis, so that every iteration's inlier
+    set is the same): split the MH inliers into low- and high-innovation
+    slots; update a copy of the state with the low ones alone, the
+    covariance of the unobservable directions zeroed first; rescue the
+    high ones that pass the chi-square gate on that copy. The reference
+    runs the partial update under ``lax.cond(any high)``; here it runs for
+    every sequence and the rescue is masked where no slot is high, as a
+    batch ``vmap`` makes of that cond. Returns (the final inlier slots,
+    the rejected slots), each (B, F); the state itself is not changed."""
+    d = cfg.dims
+    NGR = d.ng_rows
+    dtype = s.P.dtype
+    fr = s.features
+    sj = build_stacked_jacobian(cfg, s)
+    res_norm = torch.linalg.vector_norm(
+        sj.inn.reshape(sj.valid.shape + (2,)), dim=-1)
+    li = inlier_slots & sj.valid & (res_norm < cfg.ransac_thresh)
+    hi = inlier_slots & sj.valid & ~li
+
+    # groups owning at least one low-innovation inlier
+    li_rows = torch.any(li[..., None] & _onehot_rows(s.f2row, d.nf_rows),
+                        dim=-2)
+    g_with_li = torch.any((li_rows & (fr.ref >= 0))[..., None]
+                          & _onehot_rows(fr.ref, NGR), dim=-2)
+    # zero the covariance of the feature slots that are not low-innovation
+    # and of the instate groups without such a feature
+    keepf = _feature_keep_vector(cfg, (s.f2row >= 0) & ~li, dtype)
+    g_noli = (s.g2row >= 0) & ~take_rows(
+        g_with_li, torch.clamp(s.g2row, 0, NGR - 1))
+    keepg = _group_keep_vector(cfg, g_noli, dtype)
+    P_li = zero_state_entries(s.P, (keepf * keepg) > 0)
+    diagR = torch.full(sj.inn.shape, cfg.R, dtype=dtype, device=s.P.device)
+    err, P_upd = measurement_update(P_li, sj.H, sj.inn, diagR, li)
+    s_upd = absorb_error(cfg, s._replace(P=P_upd), err)
+
+    # the high-innovation slots against the updated copy
+    sj2 = build_stacked_jacobian(cfg, s_upd)
+    dist2 = mh_distances(s_upd.P, sj2.H, sj2.inn, cfg.R)
+    any_hi = torch.any(hi, dim=-1, keepdim=True)
+    rescued = hi & (dist2 < cfg.ransac_Chi2)
+    final = torch.where(any_hi, li | rescued, inlier_slots)
+    return final, inlier_slots & sj.valid & ~final
+
+
+def _destroy_slots(cfg: VIOConfig, s: VIOState, slots):
+    """Remove the features of the masked EKF slots (B, F) from the state
+    and the table; returns (state, their groups (B, NG))."""
+    d = cfg.dims
+    rows_idx = torch.where(slots, s.f2row, -1)
+    rows = torch.any((rows_idx >= 0)[..., None]
+                     & _onehot_rows(rows_idx, d.nf_rows), dim=-2)
+    affected = torch.any((rows & (s.features.ref >= 0))[..., None]
+                         & _onehot_rows(s.features.ref, d.ng_rows), dim=-2)
+    s = _remove_features_from_state(cfg, s, rows)
+    return s._replace(features=_clear_feature_rows(s.features, rows)), \
+        affected
 
 
 def _refresh_gauge_features(cfg: VIOConfig, s: VIOState) -> VIOState:
@@ -857,11 +939,12 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
     """The per-frame filter pipeline after tracker association
     (Estimator::UpdateStep, src/manager.cpp:18-167)."""
     d = cfg.dims
-    NG = d.ng_rows
     s, affected, n_oos_dropped = _process_tracks(cfg, s)
 
     # admission, then ONE correlated-init pass over the union of both
     # admission cohorts
+    if cfg.use_depth_opt:
+        s = _refine_candidate_depths(cfg, s)
     if cfg.num_gauge_xy_features > 0:
         s, nsm_g, ros_g = _admit_groups(cfg, s)
     else:
@@ -884,18 +967,21 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
     num_rej = _count(rejected_slots)
 
     # rejected features: destroy + mark their groups affected
-    rej_rows_idx = torch.where(rejected_slots, s.f2row, -1)
-    rej_rows = torch.any((rej_rows_idx >= 0)[..., None]
-                         & _onehot_rows(rej_rows_idx, d.nf_rows), dim=-2)
-    affected = affected | torch.any(
-        (rej_rows & (s.features.ref >= 0))[..., None]
-        & _onehot_rows(s.features.ref, NG), dim=-2)
-    s = _remove_features_from_state(cfg, s, rej_rows)
-    s = s._replace(features=_clear_feature_rows(s.features, rej_rows))
+    s, rej_groups = _destroy_slots(cfg, s, rejected_slots)
 
     # group hygiene + gauge maintenance
-    s, structure_changed = _discard_affected_groups(cfg, s, affected)
+    s, structure_changed = _discard_affected_groups(cfg, s,
+                                                    affected | rej_groups)
     s = _refresh_gauge_features(cfg, s)
+
+    num_1pt = torch.zeros_like(num_rej)
+    if cfg.use_1pt_RANSAC:
+        inlier_slots, ransac_rej = _one_pt_ransac(cfg, s, inlier_slots)
+        num_1pt = _count(ransac_rej)
+        s, affected2 = _destroy_slots(cfg, s, ransac_rej)
+        s, changed2 = _discard_affected_groups(cfg, s, affected2)
+        structure_changed = structure_changed | changed2
+        s = _refresh_gauge_features(cfg, s)
 
     # the EKF update with the surviving inliers; ownership transfers
     # invalidate the gating-time Jacobians, so rebuild on those frames
@@ -905,8 +991,12 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
     else:
         sj2 = sj._replace(valid=sj.valid & (s.f2row >= 0))
     inlier_now = sj2.valid & inlier_slots
-    diagR = torch.full((sj2.inn.shape[0], 2 * d.n_features), cfg.R,
-                       dtype=s.P.dtype, device=s.P.device)
+    if cfg.use_huber:
+        diagR = huber_robustify_R(sj2.inn, cfg.R, cfg.outlier_thresh,
+                                  s.P.dtype)
+    else:
+        diagR = torch.full(sj2.inn.shape, cfg.R, dtype=s.P.dtype,
+                           device=s.P.device)
     err, P = measurement_update(s.P, sj2.H, sj2.inn, diagR, inlier_now)
     do_upd = torch.any(inlier_now, dim=-1)
     err = torch.where(do_upd[:, None], err, 0.0)
@@ -934,14 +1024,13 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
         * inlier_now[..., None]
     inn_rms = torch.sqrt(torch.sum(inn_masked ** 2, dim=(-2, -1))
                          / torch.clamp(2 * _count(inlier_now), min=1))
-    zero = torch.zeros_like(num_rej)
     out = StepOutputs(
         Rsb=s.X.Rsb, Tsb=s.X.Tsb, Vsb=s.X.Vsb,
         num_instate_features=_count(s.f2row >= 0),
         num_instate_groups=_count(s.g2row >= 0),
         num_tracked=_count(s.features.track == TS_TRACKED),
         num_mh_rejected=num_rej,
-        num_oneptransac_rejected=zero,
+        num_oneptransac_rejected=num_1pt,
         num_tracker_outlier_rejected=s.n_tracker_rejected,
         inn_rms=inn_rms,
         num_oos_dropped=n_oos_dropped)
@@ -986,6 +1075,9 @@ def _propagate_frame_fast(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
         lg + sg * dt_eff[:, None], la + sa * dt_eff[:, None], nprop + 1)
     X, Phi, Q, lg, la, nprop = where_state(dt_eff > 0, vis,
                                            (X, Phi, Q, lg, la, nprop))
+    if cfg.use_oc:
+        Phi = oc_correct_phi(cfg, Phi, X, s.oc_R, s.oc_V, s.oc_T, s.X.Rsg)
+        s = s._replace(oc_R=X.Rsb, oc_V=X.Vsb, oc_T=X.Tsb)
 
     Qd = Q + nprop.to(dtype)[:, None, None] \
         * torch.diag(qmodel_diag(cfg, dtype, s.P.device))
@@ -1007,7 +1099,8 @@ def propagate_frame(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
                     imu_dt, frame_dt) -> VIOState:
     """Frame-interval propagation: the IMU samples, then extrapolation to
     the frame time, dispatched on cfg.propagation_mode as the reference
-    does. "fast": ``_propagate_frame_fast``; "reference": one
+    does. "batched": ``propagate_batched``; "fast":
+    ``_propagate_frame_fast``; "reference": one
     ``imu_sample_update`` per IMU slot, then ``propagate_state`` over the
     visual segment. imu_* are (B, KI, ...), frame_dt (B,). Rows with
     dt <= 0 (packing padding) leave the state untouched."""
@@ -1016,6 +1109,10 @@ def propagate_frame(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
         s = s._replace(td_applied=s.X.td.to(s.td_applied.dtype))
     else:
         dt_eff = frame_dt
+    if cfg.propagation_mode == "batched":
+        from .propagate_batched import propagate_frame_batched
+        return propagate_frame_batched(cfg, s, imu_gyro, imu_accel, imu_dt,
+                                       dt_eff)
     if cfg.propagation_mode == "fast":
         return _propagate_frame_fast(cfg, s, imu_gyro, imu_accel, imu_dt,
                                      dt_eff)

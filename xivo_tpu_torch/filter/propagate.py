@@ -147,6 +147,38 @@ def propagate_interval_fast_static(cfg: VIOConfig, X: MotionState, gyro0,
     return Xc, Phi, Q
 
 
+def oc_correct_phi(cfg: VIOConfig, Phi, X_new: MotionState, oc_R, oc_V,
+                   oc_T, Rsg):
+    """Observability-constrained transition correction (OC-EKF, Hesch et
+    al., TRO'13): make the yaw-about-gravity direction n_k = (R_k^T g,
+    g x T_k, g x V_k, 0, ...) propagate exactly along the prior-estimate
+    chain, Phi n_k = n_{k+1}, by the minimum-Frobenius-norm update
+    A <- A - (A u - w) u^T / (u^T u) of the W columns of the W, V and T
+    rows. (oc_R, oc_V, oc_T): last frame's end-of-propagation estimate,
+    X_new this frame's; Phi (B, 39, 39)."""
+    dtype = Phi.dtype
+    gs = mv(Rsg, constant(tuple(cfg.gravity), dtype, Phi.device))
+    ghat = gs / (torch.linalg.vector_norm(gs, dim=-1, keepdim=True) + 1e-20)
+    u = mv(oc_R.transpose(-1, -2), ghat)
+    uu = torch.sum(u * u, dim=-1) + 1e-20
+    hg = so3.hat(ghat)
+    W, T, V = L.WSB, L.TSB, L.VSB
+
+    def fix(A, w):
+        return A - (mv(A, u) - w)[..., :, None] * u[..., None, :] \
+            / uu[..., None, None]
+
+    Phi = Phi.clone()
+    Phi[:, W:W + 3, W:W + 3] = fix(Phi[:, W:W + 3, W:W + 3],
+                                   mv(X_new.Rsb.transpose(-1, -2), ghat))
+    wV = mv(hg, X_new.Vsb) - mv(Phi[:, V:V + 3, V:V + 3], mv(hg, oc_V))
+    Phi[:, V:V + 3, W:W + 3] = fix(Phi[:, V:V + 3, W:W + 3], wV)
+    wT = (mv(hg, X_new.Tsb) - mv(Phi[:, T:T + 3, T:T + 3], mv(hg, oc_T))
+          - mv(Phi[:, T:T + 3, V:V + 3], mv(hg, oc_V)))
+    Phi[:, T:T + 3, W:W + 3] = fix(Phi[:, T:T + 3, W:W + 3], wT)
+    return Phi
+
+
 def qmodel_diag(cfg: VIOConfig, dtype, device):
     """The diagonal of Qmodel, the extra motion-block process noise on
     Wsb/Wbc/(Tbc)/Wsg added once per propagated interval
@@ -213,8 +245,10 @@ def check_substeps(device) -> int:
 
 
 def uses_substep_loop(cfg: VIOConfig) -> bool:
-    """Whether the config propagates through the capped substep loops."""
-    return cfg.propagation_mode == "reference" or cfg.fast_substeps <= 0
+    """Whether the config propagates through the capped substep loops
+    ("batched" lays its substeps on a static grid of its own)."""
+    return cfg.propagation_mode == "reference" or (
+        cfg.propagation_mode == "fast" and cfg.fast_substeps <= 0)
 
 
 def _run_until(cfg: VIOConfig, dt, carry, step):

@@ -5,10 +5,10 @@ Same fixed-capacity masked tables as the reference. Differences:
 * index and count fields are int64 (the reference uses int32);
 * ``FeatureTable.desc`` holds the 32-bit descriptor words in int64;
 * no PRNG key: the reference draws from ``s.key`` for the homography
-  RANSAC of the trackers (not ported yet) and for the P3P RANSAC of loop
-  closure (``map/mapper.py:237``); the port's mapped steps take those
-  draws as an argument instead (``map/integration.py``), which the
-  mapped runners make with a seeded ``torch.Generator``.
+  RANSAC of the trackers and for the P3P RANSAC of loop closure
+  (``map/mapper.py:237``); the port's frame steps take those draws as an
+  argument instead, which the runners make with a seeded
+  ``torch.Generator`` (``runner.frame_draws``).
 
 The filter functions take every field with a leading batch axis B
 (``runner.batch_states``); ``init_state`` builds one unbatched sequence.
@@ -136,20 +136,6 @@ def torch_dtype(cfg: VIOConfig) -> torch.dtype:
 def check_supported(cfg: VIOConfig):
     """Raise on configurations whose code paths are not ported yet, naming
     the ROADMAP.md item (queue A) that brings each."""
-    if cfg.propagation_mode == "batched":
-        raise NotImplementedError(
-            "propagation_mode='batched' (the reference's "
-            "propagate_batched.py) comes with ROADMAP A.16b")
-    if cfg.online_camera_calib:
-        raise NotImplementedError(
-            "online camera calibration comes with ROADMAP A.16")
-    options = ["use_depth_opt", "use_1pt_RANSAC", "use_huber", "use_oc",
-               "use_oc_meas"]
-    on = [k for k in options if getattr(cfg, k)]
-    if on:
-        raise NotImplementedError(
-            f"xivo_tpu_torch: {on} come with ROADMAP A.16 (the other filter "
-            "options)")
     if cfg.tracker_type.upper() == "MATCH":
         raise NotImplementedError(
             "the MATCH tracker comes with ROADMAP A.12")
@@ -199,6 +185,11 @@ def init_state(cfg: VIOConfig, device="cuda") -> VIOState:
     if cfg.online_imu_calib:
         stds[layout.CG:layout.CG + 9] = cfg.P_Cg
         stds[layout.CA:layout.CA + 6] = cfg.P_Ca
+    if cfg.online_camera_calib:
+        dim = cam_mod.MODEL_DIM[cam_mod.MODEL_IDS[cfg.cam_model]]
+        stds[layout.CAM:layout.CAM + 2] = np.sqrt(cfg.P_FC[0])
+        stds[layout.CAM + 2:layout.CAM + 4] = np.sqrt(cfg.P_FC[1])
+        stds[layout.CAM + 4:layout.CAM + dim] = np.sqrt(cfg.P_distortion)
     if cfg.covariance_form == "sqrt":
         # factor P = S S^T: the diagonal factor plus the slack workspace
         from .sqrt_form import slack_cols

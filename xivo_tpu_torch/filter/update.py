@@ -21,6 +21,7 @@ from ..ops.dense import constant, take_rows
 from . import layout as L
 from .config import VIOConfig
 from .features import bcast_X, compute_jacobian
+from .propagate import mv
 from .sqrt_form import factor_innovation_blocks, sqrt_update
 from .state import VIOState
 
@@ -30,6 +31,54 @@ class StackedJac(NamedTuple):
     inn: torch.Tensor      # (B, 2F)
     valid: torch.Tensor    # (B, F) slot validity
     pred: torch.Tensor     # (B, F, 2) predicted pixels per slot
+
+
+def oc_nullspace(cfg: VIOConfig, s: VIOState):
+    """(B, D, 4) basis of the global-transform unobservable subspace at the
+    first-estimate linearization points: columns 0-2 global translation,
+    column 3 global yaw about gravity (right-multiplicative body-frame
+    errors, as ``propagate.oc_correct_phi``). Motion rows at the current
+    estimate, group rows at their first-estimate poses; feature,
+    extrinsic, bias, intrinsic and td rows are zero (invariant)."""
+    d = cfg.dims
+    dtype, dev = s.P.dtype, s.P.device
+    B, G = s.P.shape[0], d.n_groups
+    gs = mv(s.X.Rsg, constant(tuple(cfg.gravity), dtype, dev))
+    ghat = gs / (torch.linalg.vector_norm(gs, dim=-1, keepdim=True) + 1e-20)
+    hg = so3.hat(ghat)                                      # (B, 3, 3)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+
+    N = torch.zeros((B, d.full, 4), dtype=dtype, device=dev)
+    N[:, L.TSB:L.TSB + 3, 0:3] = eye3
+    N[:, L.WSB:L.WSB + 3, 3] = mv(s.X.Rsb.transpose(-1, -2), ghat)
+    N[:, L.TSB:L.TSB + 3, 3] = mv(hg, s.X.Tsb)
+    N[:, L.VSB:L.VSB + 3, 3] = mv(hg, s.X.Vsb)
+
+    rows = torch.clamp(s.g2row, min=0)
+    ok = (s.g2row >= 0).to(dtype)                           # (B, G)
+    Rf = take_rows(s.groups.Rsb_fej, rows)                  # (B, G, 3, 3)
+    Tf = take_rows(s.groups.Tsb_fej, rows)                  # (B, G, 3)
+    Ng = torch.zeros((B, G, 6, 4), dtype=dtype, device=dev)
+    Ng[:, :, 0:3, 3] = torch.einsum("bgij,bi->bgj", Rf, ghat) * ok[..., None]
+    Ng[:, :, 3:6, 3] = torch.einsum("bij,bgj->bgi", hg, Tf) * ok[..., None]
+    Ng[:, :, 3:6, 0:3] = eye3 * ok[..., None, None]
+    N[:, L.GROUP_BEGIN:L.GROUP_BEGIN + 6 * G] = Ng.reshape(B, 6 * G, 4)
+    return N
+
+
+def oc_project_rows(H, N):
+    """Project measurement rows H (B, m, D) onto the observable subspace:
+    H <- H - (H N)(N^T N)^-1 N^T, so that H N = 0 (Hesch et al., TRO'13).
+    The ridged 4 x 4 Gram is SPD: it is solved by ``cholesky_ex`` and
+    ``cholesky_solve``, whose status is never read on the host. Zero rows
+    stay zero."""
+    HN = H @ N
+    Gm = N.transpose(-1, -2) @ N
+    tr = torch.diagonal(Gm, dim1=-2, dim2=-1).sum(-1)
+    Gm = Gm + (1e-12 * tr)[..., None, None] * torch.eye(
+        4, dtype=H.dtype, device=H.device)
+    c, _ = torch.linalg.cholesky_ex(Gm)
+    return H - HN @ torch.cholesky_solve(N.transpose(-1, -2), c)
 
 
 def build_stacked_jacobian(cfg: VIOConfig, s: VIOState) -> StackedJac:
@@ -92,6 +141,8 @@ def build_stacked_jacobian(cfg: VIOConfig, s: VIOState) -> StackedJac:
     eyeF = torch.eye(F, dtype=dtype, device=Jf.device)
     Hfeat = torch.einsum("fg,bfrk->bfrgk", eyeF, Jf).reshape(B, F, 2, 3 * F)
     H = torch.cat([Jm, Jc, Hgrp, Hfeat], dim=-1).reshape(B, 2 * F, D)
+    if cfg.use_oc_meas:
+        H = oc_project_rows(H, oc_nullspace(cfg, s))
     return StackedJac(H=H, inn=inn.reshape(B, 2 * F), valid=valid,
                       pred=jr.xp_pred)
 
@@ -132,6 +183,19 @@ def mh_gate(cfg: VIOConfig, dist, valid):
     k = torch.where(torch.any(good, dim=-1), k, torch.full_like(k, R - 1))
     thresh = cfg.MH_thresh * cfg.MH_adjust_factor ** k.to(dist.dtype)
     return valid & (dist < thresh[..., None])
+
+
+def huber_robustify_R(inn, R, outlier_thresh, dtype):
+    """Huber-style inflation of the measurement variance on large
+    innovations (HuberOnInnovation, src/estimator.cpp:1290-1306): per 2-row
+    feature block, ratio = |inn|^2 / (2 R) / outlier_thresh, and blocks
+    with ratio > 1 get R scaled by sqrt(ratio). inn (B, 2F); returns the
+    per-row diag(R) (B, 2F)."""
+    blocks = inn.reshape(inn.shape[:-1] + (-1, 2))
+    ratio = torch.sum(blocks * blocks, dim=-1) / (2.0 * R) / outlier_thresh
+    scale = torch.where(ratio > 1.0, torch.sqrt(ratio),
+                        torch.ones_like(ratio))
+    return _rows(R * scale).to(dtype)
 
 
 def joseph_rows(P, H, inn, diagR, row_valid):

@@ -27,7 +27,7 @@ from ..filter.state import VIOState, where_state
 from ..filter.update import (absorb_error, innovation_blocks,
                              measurement_update)
 from ..geom import so3
-from ..ops.dense import constant, take_rows
+from ..ops.dense import adjugate3, constant, take_rows
 from ..ops import hamming
 from .p3p import pnp_ransac
 
@@ -74,15 +74,7 @@ def _scatter_rows(arr, tgt, val):
 
 def _inv3(A):
     """Closed-form 3x3 inverse (adjugate/det), batched."""
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
-    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
-    co = torch.stack([
-        torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1),
-        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1),
-        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)],
-        dim=-2)
-    det = a * co[..., 0, 0] + b * co[..., 1, 0] + c * co[..., 2, 0]
+    co, det = adjugate3(A)
     det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30),
                       det)
     return co / det[..., None, None]

@@ -107,3 +107,28 @@ def accuracy_config(world=None, **over):
               propagation_mode="fast", covariance_form="sqrt", **ACCURACY)
     kw.update(over)
     return config_from_json(PCW_CFG if world is None else world, **kw)
+
+
+# the other filter options on the square-root path, together:
+# tests/test_sqrt_form.py::test_e2e_sqrt_with_options's set (OOS, FEJ, the
+# correlated init, 1-point RANSAC, Huber) plus OC-EKF on both sides, depth
+# refinement and online camera calibration
+OPTIONS = {"use_OOS": True, "use_fej": True,
+           "approximate_init_covariance": True, "use_huber": True,
+           "use_1pt_RANSAC": True, "use_oc": True, "use_oc_meas": True,
+           "use_depth_opt": True, "online_camera_calib": True}
+# PCW_CFG with initial intrinsics stds, so that online camera calibration
+# has something to estimate (tests/test_calibration.py's)
+PCW_CALIB_CFG = dict(PCW_CFG, P={**PCW_CFG["P"], "FC": [25.0, 10.0],
+                                 "distortion": 1e-8})
+
+
+def options_config(**over):
+    """PCW_CALIB_CFG in float32 with simulated depth initialization, the
+    square-root form, fast propagation and every OPTIONS switch on;
+    ``over`` goes on top."""
+    from ..filter.config import config_from_json
+    kw = dict(dtype="float32", sim_initialize_depths=True,
+              propagation_mode="fast", covariance_form="sqrt", **OPTIONS)
+    kw.update(over)
+    return config_from_json(PCW_CALIB_CFG, **kw)

@@ -198,3 +198,21 @@ def build_pcw_stream(cfg: VIOConfig, total_time=10.0, imu_dt=0.01,
     a0, g0 = imu.meas(0.0)
     gt["gyro0"], gt["accel0"] = g0, a0
     return fi, gt
+
+
+def corrupt_measurements(fi, seed: int, share: float = 0.1,
+                         px=(8.0, 20.0), start: int = 10):
+    """A copy of the packed stream fi (leading axis T) with gross outliers
+    planted: from frame `start` on, each valid measurement is moved with
+    probability `share` by a uniform px[0]-px[1] pixels in a uniform
+    direction, all drawn from `seed`. The tracks keep their ids, so that
+    the filter, not the tracker, has to reject them."""
+    rng = np.random.default_rng(seed)
+    T, M = fi.meas_valid.shape
+    hit = (rng.random((T, M)) < share) & fi.meas_valid \
+        & (np.arange(T) >= start)[:, None]
+    mag = rng.uniform(px[0], px[1], (T, M))
+    ang = rng.uniform(0.0, 2.0 * np.pi, (T, M))
+    step = np.stack([np.cos(ang), np.sin(ang)], -1) * mag[..., None]
+    xp = np.where(hit[..., None], fi.meas_xp + step, fi.meas_xp)
+    return fi._replace(meas_xp=xp.astype(fi.meas_xp.dtype))
