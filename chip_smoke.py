@@ -49,9 +49,10 @@ image path (slice 2):
    at least 20 tracks from frame 10 on), 4 launches of B4 and B5 per
    frame and one of B1-B3;
 9. where the time goes, for the three main paths: ``torch.profiler``
-   (the device's activity alone) over ten frame steps (frames 30-39; the
-   mapped path's 131-140) gives the device's busy share and its time by
-   kernel, and the same frames
+   (the device's activity alone) over four frame steps (frames 30-33;
+   the mapped path's 131-134) gives the device's busy share and its time by
+   kernel (summed from the profiler's raw device events), and the same
+   frames
    run once more with a synchronize around each stage of the frame step
    give each stage's time (the image tracker's stages, from
    ``build_pyramid`` to BRIEF's ``extract``, are inside
@@ -79,8 +80,10 @@ mapped path (slice 3):
    MAP_FLIP_SHARE); then ``retire_features`` with fusion from that run's
    state on both devices: tables equal, positions within 1e-2 m in
    float32 and 1e-9 m in float64;
-12. run the mapped PCW path: B = 64 sequences of the 20 s "loop" stream
-   (T = 400) in one call, 20000-entry maps,
+12. run the mapped PCW path: B = 64 sequences of the first MAP_FRAMES
+   (200) frames of the 20 s "loop" stream in two calls (frames 0-129,
+   where phase 9's state and phase 10's inputs are taken, and the rest),
+   20000-entry maps,
    ``scripts/diag_kidnap_pcw.py``'s mapper settings without the kick,
    counters at 0 and the sync debug mode on;
    require finite poses, ATE-RMSE of sequence 0 below 0.15 m, more than
@@ -127,12 +130,14 @@ Joseph updates; phases 20-22 run right after phase 19):
 20. check the CUDA path of ``config_from_json(PCW_CFG)`` with nothing
    overridden (float32, default Dims) against its CPU path on B = 2 for
    FULL_CMP_FRAMES frames: poses within 1e-3 m, counts equal;
-21. run it at full width: B = 256 sequences of the 5 s stream (T = 100),
+21. run it at full width: B = 256 sequences of the 5 s stream's first
+   FULL_FRAMES (40) frames, in two calls (frames 0-29, where phase 9's
+   window starts, and the rest),
    the depths initialized from the simulation as the reference's bound
    test does (``tests/test_e2e_pcw.py:34-44``), the substep cap sized to
    the stream (``runner.fit_substeps``), counters at 0 and the sync debug
    mode on; require finite poses, ATE-RMSE of sequence 0 below 0.10 m, no
-   interval left unfinished by the cap (read once after the loop) and no
+   interval left unfinished by the cap (read after each call) and no
    launch of B1-B3 or B7; print the throughput, peak memory and the most
    substeps an interval took;
 22. the accuracy config in the full form with compression forced
@@ -146,17 +151,19 @@ outlier rejection; phases 23-26 run right after phase 8):
    overridden (float32, 512 x 512, Dims(nf_rows=256, ng_rows=128), D =
    228, reference propagation, full covariance) against its CPU path on
    the stream rendered through its lens at B = 2, with the same
-   homography draws on both: 10 frames of the config as shipped, 20
+   homography draws on both: 6 frames of the config as shipped, 6
    with the default admission gate (features in the state from frame ~3
-   on), and 10 of the config as shipped with outliers planted (the
+   on), and 8 of the config as shipped with outliers planted (the
    image's left 80 columns moved 8 px down in frames 5 and 6, so that the
    tracks there leave the homography of the rest in frame 5 and come back
-   in frame 7); each CUDA run under the sync debug mode, after a first
-   one that fills the port's cache of device constants; poses within
+   in frame 7); each CUDA run under the sync debug mode, the first after
+   a two-frame run that fills the port's cache of device constants (the
+   other two configs make the same ones); poses within
    1e-3 m, equal track, in-state feature and rejection counts, and with
    the planted outliers rejections in frame 5 on both devices;
-24. run it at full width: B = 16 sequences of the 120-frame stream,
-   counters at 0 and the sync debug mode on; require finite poses, the
+24. run it at full width: B = 16 sequences of the stream's first
+   TUMVI_FRAMES (45) frames, in two calls as phase 21, counters at 0 and
+   the sync debug mode on; require finite poses, the
    image path's accuracy bounds on sequence 0 (phase 8's), 4 launches of
    B4 and B5 a frame and none of B1-B3, B6, B7; print the throughput,
    peak memory and the rejection totals; then hold B4 and B5 against
@@ -164,7 +171,8 @@ outlier rejection; phases 23-26 run right after phase 8):
    tables) and time them;
 25. the equidistant image bench variant (``bench.py``'s, IMG_BENCH_CFG
    through ``EQUIDISTANT_512_CAM``, fast propagation, the square-root
-   form) at B = 16 over the 120-frame stream rendered through that lens,
+   form) at B = 16 over the first EQUI_FRAMES (60) frames of the stream
+   rendered through that lens,
    counted: finite poses, 1 launch of B1-B3 and 4 of B4 and B5 a frame;
 26. check the CUDA path of ``cfg/tumvi_cam0_accuracy.json`` (OOS updates,
    pose cloning, FEJ, in the full form) against its CPU path at B = 2 for
@@ -176,8 +184,9 @@ outlier rejection; phases 23-26 run right after phase 8):
    at most one (at 229, when compression fires).
 slice 12, the host side (the pyxivo ``Estimator`` and the replay app;
 phases 27-29 run last, each printing its time):
-27. ``tests/test_api.py::run_short``'s stream (the gentle trajectory, 300
-   random points, 100 Hz IMU, 20 Hz frames, 2 s; the port's simulator)
+27. the first API_RUN_T (1 s) of ``tests/test_api.py::run_short``'s
+   stream (the gentle trajectory, 300 random points, 100 Hz IMU, 20 Hz
+   frames, 2 s; the port's simulator)
    through ``xivo_tpu_torch.api.Estimator`` at the default Dims (D = 228,
    float32) of ``config_from_json(PCW_CFG, sim_initialize_depths=True)``,
    once as the default filter and once with ``propagation_mode="fast",
@@ -234,9 +243,32 @@ slice 13, the other filter options (phases 30-31 run after phase 29):
    launched; then ``filter/vi_init.vi_bootstrap`` on the stream's first
    VI_WINDOW frames, depth-aided and visual-only, on both devices:
    ``cond_ok`` and v0, g within 1e-3 of the CPU's.
-Phase 9 also profiles five frames of phase 21's path (frames 30-34), with
+slice 14, the rest of image mode (phases 32-33 run last):
+32. the MATCH tracker with the ORB detector and words on phase 8's
+   workload (IMG_BENCH_CFG, fast propagation, the square-root form, the
+   120-frame stream at B = 16): first the CUDA path against the CPU path
+   on B = 2 for MATCH_CMP_FRAMES frames (poses within 1e-3 m; tracked,
+   in-state and rejection counts and the tracks spawned equal frame by
+   frame), which also fills the config's device constants; then the main
+   run, counted, under the sync debug mode: finite poses, phase 8's
+   bounds on sequence 0, B1-B3 once a frame and no LK kernel;
+33. (a) the five new detector scores (AGAST, Shi-Tomasi, Harris, oFAST,
+   BRISK), their non-maximum suppression and top-128 picks, and the four
+   descriptors at the CPU's oFAST picks, on 16 frames of phase 32's
+   stream and 16 of the textured stream, on the card against the CPU:
+   scores within 1e-4 of each map's largest, picks equal, at most 0.5 %
+   of the words' bits apart; (b) the LK tracker with GFTT, BRISK words
+   and the dropped-track rescue on TEX_FRAMES (40) frames of a
+   ``sim/texture.TexturedBoxWorld`` room through ``EQUIDISTANT_512_CAM``
+   along the image stream's trajectory (rendered once, broadcast to B =
+   16), compared and counted as phase 32: ATE-RMSE of sequence 0 below
+   TEX_ATE_BOUND, TEX_MIN_TRACKED tracks from frame 10 on, B1-B3 once and
+   B4/B5 4 times a frame.
+Phase 9 also profiles two frames of phase 21's path (frames 30-31, from
+the main run's state at frame 30), with
 the IMU-sample updates and the Joseph updates among its stages, and times
-five frames of phase 24's (frames 30-34) with a synchronize around each
+two frames of phase 24's (frames 30-31, likewise) with a synchronize
+around each
 stage, among them ``unproject``'s Newton steps and the homography RANSAC
 (with each one's launches a call, and a whole frame step's).
 
@@ -304,7 +336,7 @@ GN_FLAG_SHARE = 0.995
 GN_UNCONV_TOL = 0.1
 IMG_PATH_TOL = 1e-3     # CUDA vs CPU image path, m
 IMG_CMP_FRAMES, IMG_CMP_OPEN_FRAMES = 10, 20
-PROFILE_FRAMES = (30, 40)   # the window that phase 9 profiles
+PROFILE_FRAMES = (30, 34)   # the window that phase 9 profiles
 
 DEV = "cuda"            # the card every phase runs on
 # the kernels of csrc/*.cu, as the profiler names them (a template's
@@ -322,10 +354,11 @@ REPLACES = {"chol_lanes": "xivo_tpu/ops/lanes_chol.py:103",
 
 MAP_B = 64
 MAP_TOTAL_TIME = 20.0   # the "loop" stream of diag_kidnap_pcw: T = 400
+MAP_FRAMES = 200        # the main run: its first 200 frames
 MAP_ATE_BOUND = 0.15    # tests/test_mapped_vio.py:42
 MAP_MIN_CLOSURES = 100  # tests/test_headline_micro.py:50
 MAP_CAPTURE_FRAME = 130
-MAP_PROFILE_FRAMES = (MAP_CAPTURE_FRAME + 1, MAP_CAPTURE_FRAME + 11)
+MAP_PROFILE_FRAMES = (MAP_CAPTURE_FRAME + 1, MAP_CAPTURE_FRAME + 5)
 MAP_CMP_FRAMES, MAP_CMP_CAPACITY, MAP_CMP_AGE = 60, 2048, 20
 MAP_PATH_TOL, MAP_CLOSURE_SHARE = 1e-3, 0.02
 MAP_POSE_EPS = 1e-5     # poses this far apart count as parted (report)
@@ -361,19 +394,25 @@ ACC_ATE_FACTOR, ACC_ATE_FLOOR = 1.25, 0.015
 # simulation, as the reference's bound test runs the config
 # (tests/test_e2e_pcw.py:34-44); the accuracy config in the full form with
 # compression forced for FULL_COMPRESS_FRAMES frames
-FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES, FULL_PROFILE_FRAMES = 10, 20, 5
+FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES, FULL_PROFILE_FRAMES = 10, 20, 2
+FULL_FRAMES = 40        # the main run: the bench stream's first 40 frames
 FULL_PATH_TOL = 1e-3
 COUNT_FIELDS = ("num_instate_features", "num_instate_groups", "num_tracked",
                 "num_mh_rejected", "num_oos_dropped")
 # slice 11: the shipped TUM-VI configs on the image stream rendered through
 # their lens; CUDA against CPU on B = 2 (the config as shipped for
-# TUMVI_CMP_FRAMES, the default admission gate for TUMVI_CMP_OPEN_FRAMES),
-# the main run at IMG_B over the whole stream; the planted outliers: the
+# TUMVI_CMP_FRAMES, the default admission gate for TUMVI_CMP_OPEN_FRAMES,
+# the planted outliers for TUMVI_PLANT_CMP_FRAMES),
+# the main run at IMG_B over TUMVI_FRAMES; the planted outliers: the
 # left TUMVI_PLANT_COLS columns moved TUMVI_PLANT_PX px down in frames
-# TUMVI_PLANT_FRAMES
+# TUMVI_PLANT_FRAMES. The accuracy comparison runs to its first OOS rows,
+# in frame 14
 TUMVI_PLANT_COLS, TUMVI_PLANT_PX, TUMVI_PLANT_FRAMES = 80, 8, (5, 6)
 TUMVI_CFGS = ("cfg/tumvi_cam0.json", "cfg/tumvi_cam0_accuracy.json")
-TUMVI_CMP_FRAMES, TUMVI_CMP_OPEN_FRAMES, TUMVI_ACC_FRAMES = 10, 20, 20
+TUMVI_CMP_FRAMES, TUMVI_CMP_OPEN_FRAMES, TUMVI_ACC_FRAMES = 6, 6, 15
+TUMVI_PLANT_CMP_FRAMES = 8  # the planted case: to the tracks' return
+TUMVI_FRAMES = 45       # the main run: the stream's first 45 frames
+EQUI_FRAMES = 60        # phase 25: the stream's first 60 frames
 TUMVI_CAPTURE_FRAMES = 3
 TUMVI_COUNTS = ("num_tracked", "num_instate_features", "num_instate_groups",
                 "num_oos_dropped", "num_tracker_outlier_rejected")
@@ -394,6 +433,25 @@ OPT_COUNTS = COUNT_FIELDS + ("num_oneptransac_rejected",
                              "num_tracker_outlier_rejected")
 BAT_B, BAT_FRAMES, BAT_CMP_FRAMES = 64, 20, 10
 BAT_ATE_BOUND, BAT_PATH_TOL, VI_WINDOW, VI_TOL = 0.10, 1e-3, 16, 1e-3
+# slice 14, the rest of image mode (phases 32-33). Phase 32: phase 8's
+# workload with the MATCH tracker and the ORB detector and descriptor,
+# held to phase 8's bounds, CUDA against CPU on B = 2 for
+# MATCH_CMP_FRAMES. Phase 33: the five new detector scores and the four
+# descriptors on DET_B frames each of phase 32's stream and of the
+# textured stream, DET_K picks an image (scores within DET_SCORE_RTOL of
+# each map's largest, picks equal, at most DESC_BIT_SHARE of the words'
+# bits differing); the LK tracker with GFTT, BRISK words and the
+# dropped-track rescue on TEX_FRAMES frames of a TexturedBoxWorld
+# (sim/texture.py) through EQUIDISTANT_512_CAM at IMG_B, with its own
+# bounds (TEX_*), and CUDA against CPU on B = 2 for TEX_CMP_FRAMES.
+MATCH_CMP_FRAMES = 10
+DET_B, DET_K, DET_SCORE_RTOL, DESC_BIT_SHARE = 16, 128, 1e-4, 0.005
+TEX_FRAMES, TEX_CMP_FRAMES = 40, 10
+TEX_ATE_BOUND, TEX_MIN_TRACKED = 0.5, 20
+FRONT_COUNTS = ("num_tracked", "num_instate_features", "num_instate_groups",
+                "num_tracker_outlier_rejected")
+DET_SCORES = ("agast_score", "shi_tomasi_score", "harris_score",
+              "ofast_score", "brisk_score")
 # B6's bound by operations: the least work a (query, entry) pair's
 # distance needs, whatever the kernel does. 8 XORs; carry-save adders
 # (a sum and a carry, one 3-input logic operation each) over seven of the
@@ -416,6 +474,15 @@ def build_kernels():
                    if f.endswith(".cu"))
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(zip(names, pool.map(_build.build, names)))
+
+
+def stamp(what, t_start, sep=" done:"):
+    """The time since t_start, on the standard output and, so that a run
+    stopped at its time limit shows how far it got, on the standard
+    error."""
+    line = f"{what}{sep} {time.time() - t_start:.1f} s"
+    print(line, flush=True)
+    print(f"chip_smoke: {line}", file=sys.stderr, flush=True)
 
 
 def card_line():
@@ -930,12 +997,19 @@ def check_lk_kernels(torch, lko, captured, random_inputs, cfg):
     return results
 
 
-def image_config():
+def image_config(camera=None, **tracker):
+    """Phase 8's config (IMG_BENCH_CFG, fast propagation, the square-root
+    form, IMG_BENCH_DIMS), through `camera` where given, with its
+    tracker_cfg updated by `tracker`."""
     from xivo_tpu_torch.filter.config import config_from_json
     from xivo_tpu_torch.filter.layout import Dims
     from xivo_tpu_torch.sim.configs import IMG_BENCH_CFG, IMG_BENCH_DIMS
-    return config_from_json(IMG_BENCH_CFG, dtype="float32",
-                            propagation_mode="fast", covariance_form="sqrt",
+    raw = dict(IMG_BENCH_CFG,
+               tracker_cfg=dict(IMG_BENCH_CFG["tracker_cfg"], **tracker))
+    if camera is not None:
+        raw["camera_cfg"] = dict(camera)
+    return config_from_json(raw, dtype="float32", propagation_mode="fast",
+                            covariance_form="sqrt",
                             dims=Dims(**IMG_BENCH_DIMS))
 
 
@@ -1141,6 +1215,20 @@ class Timed:
             setattr(m, n, fn)
 
 
+def device_events(prof):
+    """{kernel or copy name: (device time in us, count)} of a finished
+    ``torch.profiler.profile``, summed from its raw device events.
+    ``key_averages()`` gives the same sums, but first builds the whole
+    event tree: 11-33 s a path of phase 9 on the H100."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()):
+            continue
+        t, c = out.get(e.name(), (0.0, 0))
+        out[e.name()] = (t + e.duration_ns() / 1e3, c + 1)
+    return {k: v for k, v in out.items() if v[0] > 0}
+
+
 def where_time_goes(torch, label, run, stages, n_frames):
     """Phase 9 for one main path: `run()` runs the profiled window of
     `n_frames` frame steps; `stages` are the (module, function) pairs of
@@ -1156,18 +1244,11 @@ def where_time_goes(torch, label, run, stages, n_frames):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kernel = {}
     t0 = time.perf_counter()
-    events = prof.key_averages()
+    by_kernel = {name: (t / 1e3 / n_frames, c // n_frames)
+                 for name, (t, c) in device_events(prof).items()}
     print(f"{label} time: the profiler's table read in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for e in events:
-        if getattr(e, "device_type", None) is None or \
-                "CUDA" not in str(e.device_type):
-            continue
-        t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if t > 0:
-            by_kernel[e.key] = (t / 1e3 / n_frames, e.count // n_frames)
     busy = sum(t for t, _ in by_kernel.values())
     step = wall / n_frames * 1e3
     if busy > 0:
@@ -1195,10 +1276,10 @@ def where_time_goes(torch, label, run, stages, n_frames):
         + " a step", flush=True)
 
 
-def breakdown_phase(torch, pcw_cfg, mapped, full_cfg):
+def breakdown_phase(torch, pcw_cfg, mapped, full):
     """Phase 9: where the frame step's time goes, on the three main paths
-    and the default filter's (`full_cfg`, phase 21's config); `mapped` is
-    (config, (states, maps) before the window, window)."""
+    and the default filter's; `mapped` and `full` (phase 21's run) are
+    (config, states (and maps) before the window, window)."""
     from xivo_tpu_torch.filter import pipeline, update
     from xivo_tpu_torch.frontend import brief, tracker
     from xivo_tpu_torch.runner import run_batch, run_batch_image
@@ -1214,12 +1295,9 @@ def breakdown_phase(torch, pcw_cfg, mapped, full_cfg):
                      (pipeline, "tracker_pointcloud"),
                      (pipeline, "update_step")], n)
 
-    # the default filter's window is FULL_PROFILE_FRAMES long: its
-    # ~37,600 launches a step make the profiler's table slow to read
-    fb = a + FULL_PROFILE_FRAMES
-    s, fib, _ = make_run(full_cfg, torch, DEV, B, frames=fb)
-    s, _ = run_batch(full_cfg, s, type(fib)(*(x[:, :a] for x in fib)))
-    win = type(fib)(*(x[:, a:fb] for x in fib))
+    # the default filter's window is FULL_PROFILE_FRAMES long: it makes
+    # ~37,600 launches a step
+    full_cfg, s, win = moved(torch, full, DEV)
     where_time_goes(torch, f"default filter B={B}",
                     lambda: run_batch(full_cfg, s, win),
                     [(pipeline, "propagate_frame"),
@@ -1293,6 +1371,47 @@ def make_mapped_run(cfg, torch, device, batch, stream, frames=None,
 
 def window(fib, lo, hi):
     return type(fib)(*(x[:, lo:hi] for x in fib))
+
+
+def moved(torch, tree, device):
+    """A (nested) tuple of tensors moved to `device`: phase 9's states
+    wait on the host, so that they add nothing to the peak memory that
+    the phases between read."""
+    from xivo_tpu_torch.filter.state import tree_map
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def counted_split(torch, kernels, run, carry, fib, a, seeds,
+                  after=lambda: None):
+    """`counted` over every frame of `fib` in two calls, frames [0, a) and
+    then the rest, so that the main run makes on its way the state at
+    frame a that phase 9 profiles from. run(carry, inputs, seed) returns
+    the new carry followed by the frames' outputs (B, T, ...); `after()`
+    runs after each call, outside the sync check. Returns (the carry at
+    frame a, the final carry and outputs joined along the frame axis, the
+    two calls' wall s and launches summed, the larger of their peak
+    memories in bytes, after()'s two results)."""
+    T, n = int(fib.frame_dt.shape[1]), len(carry)
+    parts, wall, launches, peak, checks = [], 0.0, {}, 0, []
+    for (lo, hi), seed in zip(((0, a), (a, T)), seeds):
+        res, w, got = counted(torch, kernels, lambda: run(
+            carry, window(fib, lo, hi), seed))
+        checks.append(after())
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        wall += w
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        carry = tuple(res[:n])
+        parts.append(res[n:])
+        if lo == 0:
+            at_a = carry
+
+    def join(x, y):
+        if isinstance(x, tuple):
+            return type(x)(*(join(p, q) for p, q in zip(x, y)))
+        return torch.cat((x, y), 1)
+    return (at_a, carry + tuple(join(x, y) for x, y in zip(*parts)), wall,
+            launches, peak, checks)
 
 
 def max_sm_clock_mhz():
@@ -1554,35 +1673,38 @@ def mapped_phases(torch, lc, hm, others):
     # the counted run below must find made)
     compare_mapped_paths(torch, cfg, stream)
 
-    # the inputs of frame 130's three searches, kept for phase 10, and
-    # the state after it, where phase 9's window starts, from a run
-    # outside the timed one
-    s, ms, fib, gt = make_mapped_run(cfg, torch, DEV, MAP_B, stream)
+    # phase 12: the mapped main path, counted, in two calls: frames
+    # before MAP_CAPTURE_FRAME, then the rest
+    s, ms, fib, gt = make_mapped_run(cfg, torch, DEV, MAP_B, stream,
+                                     frames=MAP_FRAMES)
     T = int(fib.frame_dt.shape[1])
     a, (p, q) = MAP_CAPTURE_FRAME, MAP_PROFILE_FRAMES
-    st, m, _, _ = run_batch_mapped(cfg, s, ms, window(fib, 0, a), seed=1)
+    (st, m), (s, ms, outs, lcs), wall, launches, peak, _ = counted_split(
+        torch, lc.KERNELS + hm.KERNELS + others,
+        lambda c, w, seed: run_batch_mapped(cfg, *c, w, seed=seed),
+        (s, ms), fib, a, (0, 1))
+    # from the main run's state at frame 130: that frame's three
+    # searches' inputs, kept for phase 10, and the state after it, where
+    # phase 9's window starts
     with Recorder(torch, hm, ["hamming_nn"]) as seen:
         before = run_batch_mapped(cfg, st, m, window(fib, a, p), seed=2)[:2]
+    del st, m
     torch.cuda.synchronize()
-
-    # phase 12: the mapped main path, counted: one call, all T frames
-    (s, ms, outs, lcs), wall, launches = counted(
-        torch, lc.KERNELS + hm.KERNELS + others,
-        lambda: run_batch_mapped(cfg, s, ms, fib, seed=0))
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
         raise AssertionError("non-finite poses")
-    err = np.linalg.norm(Tsb[0] - gt["Tsb"], axis=1)
+    err = np.linalg.norm(Tsb[0] - gt["Tsb"][:T], axis=1)
     ate = float(np.sqrt(np.mean(err ** 2)))
     lcs = lcs.cpu().numpy()
     count, merged = ms.count.cpu().numpy(), ms.n_merged.cpu().numpy()
     first = int(np.argmax(lcs[0] > 0)) if lcs[0].any() else None
-    all_ate = np.sqrt(np.mean(np.linalg.norm(Tsb - gt["Tsb"][None], axis=2)
+    all_ate = np.sqrt(np.mean(np.linalg.norm(Tsb - gt["Tsb"][None, :T],
+                                             axis=2)
                               ** 2, axis=1))
     print(f"mapped main path: B={MAP_B} T={T} D={cfg.dims.full} maps of "
-          f"{cfg.map_capacity} wall {wall:.3f} s sequence-frames/s "
-          f"{MAP_B * T / wall:.1f} peak_mem_GB "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
+          f"{cfg.map_capacity} (frames 0-{a - 1} and {a}-{T - 1} as two "
+          f"calls) wall {wall:.3f} s sequence-frames/s "
+          f"{MAP_B * T / wall:.1f} peak_mem_GB {peak / 1e9:.2f} launches "
           f"{launches}", flush=True)
     print(f"mapped main path, sequence 0: ATE-RMSE {ate:.5f} m (bound "
           f"{MAP_ATE_BOUND}), final error {err[-1]:.5f} m, closure rows "
@@ -1926,8 +2048,9 @@ def default_config(**over):
 def full_form_phases(torch, lc, chol):
     """Phases 20-22: the reference's default filter. Returns the main
     run's launches, the full-form accuracy run's launches with compression
-    forced, B1's check at 229 on that run's inputs and the main run's
-    config (for phase 9)."""
+    forced, B1's check at 229 on that run's inputs and, for phase 9, the
+    main run's config, its states at frame PROFILE_FRAMES[0] and the
+    FULL_PROFILE_FRAMES frames from there."""
     from xivo_tpu_torch.filter import oos, propagate
     from xivo_tpu_torch.runner import run_batch
     from xivo_tpu_torch.sim.configs import accuracy_config
@@ -1960,24 +2083,25 @@ def full_form_phases(torch, lc, chol):
 
     # phase 21: the main run at full width, counted
     cfg = default_config(sim_initialize_depths=True)
-    s, fib, gt = make_run(cfg, torch, DEV, B)
-    T = int(fib.frame_dt.shape[1])
-    propagate.reset_substep_counts(DEV)
-    (s, outs), wall, launches = counted(
-        torch, kernels, lambda: run_batch(cfg, s, fib, check=False))
-    most = propagate.check_substeps(DEV)      # raises on an unfinished one
+    s, fib, gt = make_run(cfg, torch, DEV, B, frames=FULL_FRAMES)
+    T, a = int(fib.frame_dt.shape[1]), PROFILE_FRAMES[0]
+    # the substep counters read after each call (raises on an unfinished
+    # interval)
+    (s_a,), (s, outs), wall, launches, peak, most = counted_split(
+        torch, kernels, lambda c, w, _: run_batch(cfg, *c, w, check=False),
+        (s,), fib, a, (0, 0), after=lambda: propagate.check_substeps(DEV))
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
         raise AssertionError("non-finite poses")
-    err = np.linalg.norm(Tsb - gt["Tsb"][None], axis=2)
+    err = np.linalg.norm(Tsb - gt["Tsb"][None, :T], axis=2)
     ates = np.sqrt(np.mean(err ** 2, axis=1))
     print(f"default filter main path: B={B} T={T} D={cfg.dims.full} "
           f"(reference Prince-Dormand propagation, stepsize "
           f"{cfg.stepsize}, max_substeps {cfg.max_substeps}; full "
-          f"covariance) wall {wall:.3f} s sequence-frames/s "
-          f"{B * T / wall:.1f} peak_mem_GB "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches "
-          f"{launches}; the most substeps an interval took {most}, "
+          f"covariance; frames 0-{a - 1} and {a}-{T - 1} as two calls) "
+          f"wall {wall:.3f} s sequence-frames/s "
+          f"{B * T / wall:.1f} peak_mem_GB {peak / 1e9:.2f} launches "
+          f"{launches}; the most substeps an interval took {max(most)}, "
           f"intervals left unfinished 0", flush=True)
     print(f"default filter main path, sequence 0: ATE-RMSE {ates[0]:.5f} m "
           f"(bound {ATE_BOUND}), final error {err[0, -1]:.5f} m; in-state "
@@ -1988,6 +2112,9 @@ def full_form_phases(torch, lc, chol):
         raise AssertionError(f"ATE {ates[0]} >= {ATE_BOUND}")
     if any(launches.values()):
         raise AssertionError(f"launches {launches}, expected none")
+    profiled = moved(torch, (cfg, s_a, window(
+        fib, a, a + FULL_PROFILE_FRAMES)), "cpu")
+    del s_a
 
     # phase 22: the accuracy config in the full form, compression forced
     ccfg = accuracy_config(covariance_form="full",
@@ -2014,7 +2141,7 @@ def full_form_phases(torch, lc, chol):
     del seen
     check = check_oos_shape(torch, "chol_lanes", lc.chol_lanes,
                             lc.chol_plain, inputs, backward=True)
-    return launches, claunches, check, cfg
+    return launches, claunches, check, profiled
 
 
 # ---------------------------------------------------------------------------
@@ -2047,11 +2174,13 @@ def hom_draws(torch, cfg, batch, frames, seed=0):
 
 
 def compare_image_devices(torch, label, cfg, stream, frames, oos=None,
-                          kernels=()):
+                          kernels=(), warm=True):
     """The CUDA image path of `cfg` against its CPU path on B = 2 for
     `frames` frames with the same homography draws: poses within
     IMG_PATH_TOL and the TUMVI_COUNTS (and, with `oos`, the OOS rows)
-    equal frame by frame. Returns the CUDA run's launches of `kernels`."""
+    equal frame by frame. Returns the CUDA run's launches of `kernels`.
+    `warm=False` skips the CUDA path's two-frame first run where a config
+    with the same device constants has run on the card already."""
     from xivo_tpu_torch.filter import propagate
     from xivo_tpu_torch.runner import run_batch_image
     draws = hom_draws(torch, cfg, 2, frames)
@@ -2064,12 +2193,13 @@ def compare_image_devices(torch, label, cfg, stream, frames, oos=None,
         def run(check):
             return run_batch_image(cfg, s, f, fib, check=check,
                                    hom_uniforms=hom)[2]
-        if dev == DEV:
+        if dev == DEV and warm:
             # a first run fills ops.dense.constant's cache (each new
-            # constant's upload waits for the device once)
-            run(True)
-            s, f, fib = make_image_run(cfg, torch, dev, 2, stream,
-                                       frames=frames)
+            # constant's upload waits for the device once; a config makes
+            # all of its constants in its first two frames)
+            run_batch_image(cfg, *make_image_run(cfg, torch, dev, 2, stream,
+                                                 frames=2),
+                            hom_uniforms=hom[:, :2])
         rec = None if oos is None else OosRows(oos)
         with rec or contextlib.nullcontext():
             if dev == DEV:
@@ -2106,8 +2236,9 @@ def compare_image_devices(torch, label, cfg, stream, frames, oos=None,
 def tumvi_phases(torch, lc, lko, others):
     """Phases 23-24: ``cfg/tumvi_cam0.json`` on the CUDA and CPU paths, then
     at full width, counted. Returns the B4-B5 checks at the config's shapes,
-    the main run's launches, and (config, states and inputs before phase
-    9's window, the window) for the stage times."""
+    the main run's launches, and, for the stage times, the config, the
+    main run's states at frame PROFILE_FRAMES[0] (on the host) and the
+    stream."""
     from xivo_tpu_torch.filter import propagate
     from xivo_tpu_torch.runner import run_batch_image
     cfg, stream = tumvi_config()
@@ -2118,13 +2249,10 @@ def tumvi_phases(torch, lc, lko, others):
         (512, 512))
     kernels = lc.KERNELS + lko.KERNELS + others
 
-    # phase 23: CUDA against CPU, as shipped, with the gate open, and with
-    # outliers planted
-    open_cfg = dataclasses.replace(cfg, max_depth_var_for_admission=np.inf)
-    for label, c, frames in (("tumvi as shipped", cfg, TUMVI_CMP_FRAMES),
-                             ("tumvi default admission gate", open_cfg,
-                              TUMVI_CMP_OPEN_FRAMES)):
-        compare_image_devices(torch, label, c, stream, frames)
+    # phase 23: CUDA against CPU, as shipped, then with outliers planted
+    # and with the gate open (the same device constants: made already)
+    compare_image_devices(torch, "tumvi as shipped", cfg, stream,
+                          TUMVI_CMP_FRAMES)
     fi, gt = stream
     image = fi.image.copy()
     rows = slice(TUMVI_PLANT_FRAMES[0], TUMVI_PLANT_FRAMES[-1] + 1)
@@ -2132,33 +2260,39 @@ def tumvi_phases(torch, lc, lko, others):
         image[rows, :-TUMVI_PLANT_PX, :TUMVI_PLANT_COLS]
     _, _, out = compare_image_devices(
         torch, "tumvi planted outliers", cfg, (fi._replace(image=image), gt),
-        TUMVI_CMP_FRAMES)
+        TUMVI_PLANT_CMP_FRAMES, warm=False)
     if not bool((out.num_tracker_outlier_rejected[
             :, TUMVI_PLANT_FRAMES[0]] > 0).all()):
         raise AssertionError("the planted outliers were not rejected")
+    open_cfg = dataclasses.replace(cfg, max_depth_var_for_admission=np.inf)
+    compare_image_devices(torch, "tumvi default admission gate", open_cfg,
+                          stream, TUMVI_CMP_OPEN_FRAMES, warm=False)
 
-    # phase 24: the main run, counted; the substep counters read after it
-    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream)
-    T = int(fib.frame_dt.shape[1])
-    propagate.reset_substep_counts(DEV)
-    (s, f, outs), wall, launches = counted(
-        torch, kernels, lambda: run_batch_image(cfg, s, f, fib, check=False,
-                                                seed=1))
-    most = propagate.check_substeps(DEV)      # raises on an unfinished one
+    # phase 24: the main run, counted; the substep counters read after
+    # each of its two calls (raises on an unfinished interval)
+    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream,
+                               frames=TUMVI_FRAMES)
+    T, a = int(fib.frame_dt.shape[1]), PROFILE_FRAMES[0]
+    at_a, (s, f, outs), wall, launches, peak, most = counted_split(
+        torch, kernels, lambda c, w, seed: run_batch_image(
+            cfg, *c, w, check=False, seed=seed),
+        (s, f), fib, a, (1, 2), after=lambda: propagate.check_substeps(DEV))
+    most = max(most)
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
         raise AssertionError("non-finite poses")
     gt = stream[1]
-    err = np.linalg.norm(Tsb[0] - gt["Tsb"], axis=1)
+    err = np.linalg.norm(Tsb[0] - gt["Tsb"][:T], axis=1)
     ntr = outs.num_tracked.cpu().numpy()
     inst = outs.num_instate_features.cpu().numpy()
     rej = outs.num_tracker_outlier_rejected.cpu().numpy()
     print(f"tumvi main path: B={IMG_B} T={T} 512x512 D={cfg.dims.full} "
           f"nf_rows {cfg.dims.nf_rows} (equidistant lens, reference "
           f"propagation, max_substeps {cfg.max_substeps}, the most an "
-          f"interval took {most}, full covariance) "
+          f"interval took {most}, full covariance; frames 0-{a - 1} and "
+          f"{a}-{T - 1} as two calls) "
           f"wall {wall:.3f} s sequence-frames/s {IMG_B * T / wall:.1f} "
-          f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"peak_mem_GB {peak / 1e9:.2f} "
           f"launches {launches}; outlier rejections {int(rej.sum())} in "
           f"all, sequence 0 {int(rej[0].sum())}, at most "
           f"{int(rej.max())} in a frame", flush=True)
@@ -2169,7 +2303,7 @@ def tumvi_phases(torch, lc, lko, others):
           f"(bound {IMG_MIN_TRACKED}); features in the state from frame "
           f"{int(np.argmax(inst[0] > 0)) if inst[0].any() else None}, "
           f"{int(inst[0, -1])} at the end; all sequences: final error "
-          f"{np.linalg.norm(Tsb[:, -1] - gt['Tsb'][-1], axis=1).max():.4f}"
+          f"{np.linalg.norm(Tsb[:, -1] - gt['Tsb'][T - 1], axis=1).max():.4f}"
           f" m at most", flush=True)
     if not (err[-1] < IMG_FINAL_BOUND and np.median(err) < IMG_MEDIAN_BOUND
             and ntr[0, 10:].min() >= IMG_MIN_TRACKED):
@@ -2189,37 +2323,27 @@ def tumvi_phases(torch, lc, lko, others):
     checks = check_lk_kernels(torch, lko, seen, {"sample_templates": [],
                                                  "gn_tracks": []}, cfg)
     del seen
-    a = PROFILE_FRAMES[0]
-    b = a + FULL_PROFILE_FRAMES
-    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream, frames=b)
-    s, f, _ = run_batch_image(cfg, s, f, type(fib)(*(x[:, :a] for x in fib)))
-    win = type(fib)(*(x[:, a:b] for x in fib))
-    return {c["name"]: c for c in checks}, launches, (cfg, (s, f), win)
+    return {c["name"]: c for c in checks}, launches, (
+        cfg, moved(torch, at_a, "cpu"), stream)
 
 
 def equidistant_bench_phase(torch, kernels):
     """Phase 25: the equidistant image bench variant, counted."""
-    from xivo_tpu_torch.filter.config import config_from_json
-    from xivo_tpu_torch.filter.layout import Dims
     from xivo_tpu_torch.runner import run_batch_image
-    from xivo_tpu_torch.sim.configs import (EQUIDISTANT_512_CAM,
-                                            IMG_BENCH_CFG, IMG_BENCH_DIMS)
+    from xivo_tpu_torch.sim.configs import EQUIDISTANT_512_CAM
     from xivo_tpu_torch.sim.image_stream import build_image_stream
-    cfg = config_from_json(dict(IMG_BENCH_CFG,
-                                camera_cfg=dict(EQUIDISTANT_512_CAM)),
-                           dtype="float32", propagation_mode="fast",
-                           covariance_form="sqrt",
-                           dims=Dims(**IMG_BENCH_DIMS))
+    cfg = image_config(EQUIDISTANT_512_CAM)
     assert cfg.cam_model == "equidistant" and cfg.dims.full == 228
     stream = build_image_stream(cfg)
     run_batch_image(cfg, *make_image_run(cfg, torch, DEV, 2, stream,
                                          frames=2))          # constants
-    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream)
+    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream,
+                               frames=EQUI_FRAMES)
     T = int(fib.frame_dt.shape[1])
     (s, f, outs), wall, launches = counted(
         torch, kernels, lambda: run_batch_image(cfg, s, f, fib))
     Tsb = outs.Tsb.cpu().numpy()
-    err = np.linalg.norm(Tsb[0] - stream[1]["Tsb"], axis=1)
+    err = np.linalg.norm(Tsb[0] - stream[1]["Tsb"][:T], axis=1)
     print(f"equidistant image bench variant: B={IMG_B} T={T} 512x512 D="
           f"{cfg.dims.full} wall {wall:.3f} s sequence-frames/s "
           f"{IMG_B * T / wall:.1f} peak_mem_GB "
@@ -2269,8 +2393,7 @@ def launches_per_call(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", "")))
+    return sum(c for _, c in device_events(prof).values())
 
 
 def tumvi_stage_times(torch, tumvi):
@@ -2280,7 +2403,11 @@ def tumvi_stage_times(torch, tumvi):
     from xivo_tpu_torch.cam import models as cam_models
     from xivo_tpu_torch.frontend import tracker
     from xivo_tpu_torch.runner import run_batch_image
-    cfg, (s, f), win = tumvi
+    cfg, at_a, stream = tumvi
+    s, f = moved(torch, at_a, DEV)
+    a = PROFILE_FRAMES[0]
+    win = window(make_image_run(cfg, torch, DEV, IMG_B, stream,
+                                frames=a + FULL_PROFILE_FRAMES)[2], a, None)
     n = win.frame_dt.shape[1]
 
     def run():
@@ -2380,6 +2507,7 @@ def slice11_phases(torch, lc, lko, hm, chol):
 
 
 API_T = 2.0             # tests/test_api.py::run_short: 2 s of stream
+API_RUN_T = 1.0         # phase 27 drives the stream's first second
 API_WARM_T = 0.3        # the stream's head, run once before a checked run
 API_PATH_TOL = 1e-3     # CUDA vs CPU through the Estimator, m
 # the frames of the default filter's CUDA run held against the CPU (the
@@ -2452,8 +2580,9 @@ def api_pcw_phase(torch, kernels, lc):
                                              covariance_form="sqrt"))):
         cfg = config_from_json(PCW_CFG, sim_initialize_depths=True, **over)
         assert (cfg.dims.full, cfg.dtype) == (228, "float32")
-        msgs = run_short_messages(*Estimator(cfg, device="cpu").gbc(),
-                                  T=API_T)
+        msgs = [m for m in run_short_messages(
+            *Estimator(cfg, device="cpu").gbc(), T=API_T)
+            if m[0] < API_RUN_T]
         drive_api(torch, Estimator(cfg, device=DEV),
                   [m for m in msgs if m[0] < API_WARM_T])
         for k in kernels:
@@ -2786,6 +2915,193 @@ def batched_phase(torch, kernels):
     return launches
 
 
+def front_end_run(torch, cfg, stream, dev, batch, frames):
+    """`run_batch_image`'s frame loop, also keeping each frame's next
+    track id: (StepOutputs stacked (B, T), tracks spawned each frame
+    (B, T))."""
+    from xivo_tpu_torch.frontend.tracker import vio_frame_image
+    from xivo_tpu_torch.runner import _stack
+    s, f, fib = make_image_run(cfg, torch, dev, batch, stream, frames)
+    outs, fids = [], [s.next_fid]
+    for t in range(fib.frame_dt.shape[1]):
+        s, f, out = vio_frame_image(cfg, s, f, *(a[:, t] for a in fib))
+        outs.append(out)
+        fids.append(s.next_fid)
+    return _stack(outs), torch.diff(torch.stack(fids, 1), dim=1)
+
+
+def compare_front_end(torch, label, cfg, stream, frames):
+    """The CUDA path of `cfg` against its CPU path on B = 2 for `frames`
+    frames: poses within IMG_PATH_TOL; FRONT_COUNTS and the tracks spawned
+    equal frame by frame. The CUDA run also fills the config's device
+    constants (the warm-up before a checked run)."""
+    res = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        res[dev] = front_end_run(torch, cfg, stream, dev, 2, frames)
+        print(f"{label} {dev} path: {frames} frames in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    (og, sg), (oc, sc) = res[DEV], res["cpu"]
+    dpos = float((og.Tsb.cpu() - oc.Tsb).abs().max())
+    same = torch.equal(sg.cpu(), sc)
+    for name in FRONT_COUNTS:
+        x, y = getattr(og, name).cpu(), getattr(oc, name)
+        same &= torch.equal(x, y)
+        print(f"{label} cuda vs cpu path: {name} cuda {x[0].tolist()} cpu "
+              f"{y[0].tolist()}", flush=True)
+    print(f"{label} cuda vs cpu path: spawned cuda {sg[0].tolist()} cpu "
+          f"{sc[0].tolist()}", flush=True)
+    print(f"{label} cuda vs cpu path, {frames} frames: max |dTsb| "
+          f"{dpos:.3e} m; counts {'equal' if same else 'DIFFER'}",
+          flush=True)
+    if not (dpos < IMG_PATH_TOL and same):
+        raise AssertionError(f"the CUDA path disagrees with the CPU path "
+                             f"({label})")
+
+
+def front_end_main_run(torch, label, cfg, stream, kernels, expect):
+    """`cfg` at IMG_B over the whole stream, counted under the sync debug
+    mode (after `compare_front_end`'s CUDA run): finite poses and the
+    launches `expect`; returns (outputs, launches)."""
+    from xivo_tpu_torch.runner import run_batch_image
+    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream)
+    T = int(fib.frame_dt.shape[1])
+    (s, f, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch_image(cfg, s, f, fib))
+    if not torch.isfinite(outs.Tsb).all() or \
+            not torch.isfinite(outs.Rsb).all():
+        raise AssertionError("non-finite poses")
+    print(f"{label} main path: B={IMG_B} T={T} 512x512 D={cfg.dims.full} "
+          f"wall {wall:.3f} s sequence-frames/s {IMG_B * T / wall:.1f} "
+          f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"launches {launches}", flush=True)
+    want = {k.name: 0 for k in kernels}
+    want.update({name: n * T for name, n in expect.items()})
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return outs, launches
+
+
+def match_phase(torch, kernels):
+    """Phase 32: the MATCH tracker at full width. Returns its launches and
+    its stream."""
+    from xivo_tpu_torch.sim.image_stream import build_image_stream
+    t_phase = time.time()
+    cfg = image_config(tracker_type="MATCH", detector="ORB",
+                           descriptor="orb")
+    assert (cfg.tracker_type, cfg.detector, cfg.descriptor_type,
+            cfg.dims.full) == ("MATCH", "ORB", "orb", 228)
+    stream = build_image_stream(cfg)
+    compare_front_end(torch, "match", cfg, stream, MATCH_CMP_FRAMES)
+    outs, launches = front_end_main_run(
+        torch, "match", cfg, stream, kernels,
+        {"chol_lanes": 1, "chol_inv_lanes": 1, "tri_inv_lanes": 1})
+    err = np.linalg.norm(outs.Tsb[0].cpu().numpy() - stream[1]["Tsb"],
+                         axis=1)
+    ntr = outs.num_tracked[0].cpu().numpy()
+    print(f"match main path, sequence 0: final error {err[-1]:.4f} m "
+          f"(bound {IMG_FINAL_BOUND}), median {np.median(err):.4f} m (bound "
+          f"{IMG_MEDIAN_BOUND}), RMSE {np.sqrt(np.mean(err ** 2)):.4f} m; "
+          f"tracked from frame 10 at least {int(ntr[10:].min())} (bound "
+          f"{IMG_MIN_TRACKED}); on {card_line()}; phase 32 done in "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    if not (err[-1] < IMG_FINAL_BOUND and np.median(err) < IMG_MEDIAN_BOUND
+            and ntr[10:].min() >= IMG_MIN_TRACKED):
+        raise AssertionError("MATCH path outside the image path's bounds")
+    return launches, stream
+
+
+def detector_checks(torch, label, images):
+    """Phase 33(a) on (DET_B, H, W) float32 images: each new detector
+    score, its non-maximum suppression and top-DET_K pick on the card
+    against the CPU, then each descriptor kind at the CPU's oFAST picks."""
+    from xivo_tpu_torch.frontend import brief, descriptors, fast
+    from xivo_tpu_torch.frontend.image import blur5
+    img = {dev: torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+           for dev in (DEV, "cpu")}
+    B = images.shape[0]
+    picks = {}
+    for name in DET_SCORES:
+        out = {}
+        for dev in (DEV, "cpu"):
+            t0 = time.time()
+            sc = getattr(fast, name)(img[dev])
+            none = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+            pk = fast.select_topk(fast.nms3(sc), DET_K, 8,
+                                  torch.zeros((B, 1, 2), device=dev), none,
+                                  15)
+            out[dev] = [x.cpu() for x in (sc,) + pk] + [time.time() - t0]
+        (sg, xg, vg, og, tg), (sc, xc, vc, oc, tcpu) = out[DEV], out["cpu"]
+        scale = sc.abs().amax(dim=(-2, -1)).clamp_min(1e-30)
+        rel = float(((sg - sc).abs().amax(dim=(-2, -1)) / scale).max())
+        same = torch.equal(xg, xc) and torch.equal(og, oc)
+        print(f"detector {name} on {label}: scores within {rel:.3e} of each "
+              f"map's largest (limit {DET_SCORE_RTOL}); {int(oc.sum())} "
+              f"picks, {'equal' if same else 'DIFFER'}; cuda {tg:.3f} s cpu "
+              f"{tcpu:.3f} s", flush=True)
+        if not (rel <= DET_SCORE_RTOL and same):
+            raise AssertionError(f"detector {name} on the card disagrees "
+                                 f"with the CPU ({label})")
+        picks[name] = (xc, oc)
+    xy, ok = picks["ofast_score"]
+    for kind, k in sorted(descriptors.KINDS.items()):
+        words = [descriptors.extract(k, blur5(img[dev]), xy.to(dev)).cpu()
+                 for dev in (DEV, "cpu")]
+        flips = brief.popcount32(torch.bitwise_xor(*words)).sum(-1)
+        share = float(flips[ok].sum()) / (int(ok.sum()) * brief.N_BITS)
+        print(f"descriptor {kind} on {label}: {share:.5f} of the bits "
+              f"differ (limit {DESC_BIT_SHARE}) over {int(ok.sum())} "
+              f"keypoints", flush=True)
+        if not share <= DESC_BIT_SHARE:
+            raise AssertionError(f"descriptor {kind} on the card disagrees "
+                                 f"with the CPU ({label})")
+
+
+def textured_phase(torch, kernels, match_stream):
+    """Phase 33: the building blocks on the card against the CPU, then the
+    LK tracker with GFTT, BRISK words and the dropped-track rescue on the
+    textured stream. Returns its launches."""
+    from xivo_tpu_torch.sim.configs import EQUIDISTANT_512_CAM
+    from xivo_tpu_torch.sim.image_stream import VIS_DT, build_image_stream
+    from xivo_tpu_torch.sim.texture import world_for
+    t_phase = time.time()
+    cfg = image_config(EQUIDISTANT_512_CAM, detector="GFTT",
+                           descriptor="brisk", match_dropped_tracks=True)
+    assert (cfg.cam_model, cfg.detector, cfg.descriptor_type,
+            cfg.match_dropped_tracks) == ("equidistant", "GFTT", "brisk",
+                                          True)
+    t0 = time.time()
+    stream = build_image_stream(cfg, total_time=VIS_DT * TEX_FRAMES + 0.01,
+                                world=world_for(cfg))
+    assert stream[0].image.shape == (TEX_FRAMES, 512, 512)
+    print(f"textured stream: {TEX_FRAMES} frames of 512x512 through "
+          f"EQUIDISTANT_512_CAM rendered in {time.time() - t0:.1f} s",
+          flush=True)
+    dots = match_stream[0].image
+    detector_checks(torch, "phase 32's frames",
+                    dots[::len(dots) // DET_B][:DET_B])
+    detector_checks(torch, "textured frames", stream[0].image[:DET_B])
+
+    compare_front_end(torch, "textured", cfg, stream, TEX_CMP_FRAMES)
+    outs, launches = front_end_main_run(
+        torch, "textured", cfg, stream, kernels,
+        {"chol_lanes": 1, "chol_inv_lanes": 1, "tri_inv_lanes": 1,
+         "lk_sample_templates": cfg.klt_max_level,
+         "lk_gn_tracks": cfg.klt_max_level})
+    err = np.linalg.norm(outs.Tsb[0].cpu().numpy() - stream[1]["Tsb"],
+                         axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    ntr = outs.num_tracked[0].cpu().numpy()
+    print(f"textured main path, sequence 0: ATE-RMSE {ate:.5f} m (bound "
+          f"{TEX_ATE_BOUND}), final error {err[-1]:.4f} m; tracked from "
+          f"frame 10 at least {int(ntr[10:].min())} (bound "
+          f"{TEX_MIN_TRACKED}); on {card_line()}; phase 33 done in "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    if not (ate < TEX_ATE_BOUND and ntr[10:].min() >= TEX_MIN_TRACKED):
+        raise AssertionError("textured path outside its bounds")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2800,7 +3116,8 @@ def main():
 
     t_start = time.time()
     card = card_line()
-    print(f"card: {card}", flush=True)
+    print(f"card: {card}; host: {len(os.sched_getaffinity(0))} CPUs "
+          f"usable, {torch.get_num_threads()} PyTorch threads", flush=True)
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
     assert not torch.backends.cudnn.allow_tf32, "TF32 cuDNN is on"
 
@@ -2809,42 +3126,46 @@ def main():
     print(f"build: {sorted(built)} in {time.time() - t0:.1f} s", flush=True)
     chol_entry = check_chol_blocked(torch, lc, chol)
     chol_entry["launches"] = profile_phase(torch, chol)
-    print(f"B7 phases done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("B7 phases", t_start)
     kernels, base_ate, pcw_launches = pcw_phases(torch, lc, chol.KERNELS)
-    print(f"pcw phases done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("pcw phases", t_start)
     acc_launches, oos_shapes = accuracy_phases(torch, lc, chol, base_ate)
-    print(f"accuracy phases done: {time.time() - t_start:.1f} s", flush=True)
-    full_launches, full_acc_launches, full_b1, full_cfg = full_form_phases(
+    stamp("accuracy phases", t_start)
+    full_launches, full_acc_launches, full_b1, full = full_form_phases(
         torch, lc, chol)
-    print(f"default filter phases done: {time.time() - t_start:.1f} s",
-          flush=True)
+    stamp("default filter phases", t_start)
     lk_kernels, img_launches = image_phases(torch, lc, lko, chol.KERNELS)
-    print(f"image phases done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("image phases", t_start)
     tumvi_checks, tumvi_launches, tumvi_acc_launches, equi_launches, \
         tumvi = slice11_phases(torch, lc, lko, hm, chol)
-    print(f"TUM-VI phases done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("TUM-VI phases", t_start)
     hm_kernel, map_launches, mcfg, before, win = mapped_phases(
         torch, lc, hm, chol.KERNELS)
-    print(f"mapped phases done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("mapped phases", t_start)
     refine_phase(torch, mcfg)
     img_map_launches = image_mapped_phase(
         torch, lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS)
-    breakdown_phase(torch, pcw_config(), (mcfg, before, win), full_cfg)
+    breakdown_phase(torch, pcw_config(), (mcfg, before, win), full)
+    del full
     del before
     tumvi_stage_times(torch, tumvi)
     del tumvi
+    stamp("refine, image-mapped and where-the-time-goes phases", t_start)
     all_kernels = lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS
     api_full_launches, api_sqrt_launches = api_pcw_phase(
         torch, all_kernels, lc)
     asl_launches = asl_replay_phase(torch, all_kernels, lko)
     tumvi_api_launches = tumvi_api_phase(torch, all_kernels, lko)
-    print(f"API phases done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("API phases", t_start)
     opt_launches, opt_checks = options_phase(
         torch, lc, lko.KERNELS + hm.KERNELS + chol.KERNELS)
-    print(f"options phase done: {time.time() - t_start:.1f} s", flush=True)
+    stamp("options phase", t_start)
     bat_launches = batched_phase(torch, all_kernels)
-    print(f"batched propagation phase done: {time.time() - t_start:.1f} s",
-          flush=True)
+    stamp("batched propagation phase", t_start)
+    match_launches, match_stream = match_phase(torch, all_kernels)
+    tex_launches = textured_phase(torch, all_kernels, match_stream)
+    del match_stream
+    stamp("image-mode options phases", t_start)
     for k in kernels:
         k["oos_shape"] = oos_shapes[k["name"]]
         k["options_path"] = opt_checks[k["name"]]
@@ -2873,9 +3194,11 @@ def main():
         k["launches_tumvi_api_path"] = tumvi_api_launches[name]
         k["launches_options_sqrt_path"] = opt_launches[name]
         k["launches_batched_path"] = bat_launches[name]
+        k["launches_match_path"] = match_launches[name]
+        k["launches_textured_path"] = tex_launches[name]
         if name in tumvi_checks:
             k["tumvi_shape"] = tumvi_checks[name]
-    print(f"elapsed: {time.time() - t_start:.1f} s", flush=True)
+    stamp("elapsed", t_start, ":")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,13 @@ The pyxivo ``Estimator`` built for the card against one built for the
 CPU on ``tests/test_api.py::run_short``'s first frames (the square-root
 form at full width, float32): positions within ``chip_smoke``'s
 ``API_PATH_TOL``, equal counts, B1-B3 once a frame.
+The MATCH tracker (ORB detector and descriptor) at full width on the
+card against the CPU for 3 frames, as ``chip_smoke``'s phase 32 holds it
+(poses within ``IMG_PATH_TOL``, counts and spawned tracks equal), and
+the ORB and BRISK words at a tiled image's oFAST picks on the card against
+the CPU: at most ``DESC_BIT_SHARE`` of the bits differ (the orientation
+sums run in another order on the card, so a bit whose two samples lie
+within rounding may flip).
 """
 import functools
 
@@ -60,8 +67,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GN_UNCONV_TOL, MAP_FUSE_TOL32, MAP_FUSE_TOL64,
-                        Recorder, backward_use,
+from chip_smoke import (DESC_BIT_SHARE, GN_UNCONV_TOL, MAP_FUSE_TOL32,
+                        MAP_FUSE_TOL64, Recorder, backward_use,
                         compare_api_frames, compare_retire, drive_api,
                         make_mapped_run, make_run, mapped_config,
                         mapped_stream, random_hamming_inputs, texture)
@@ -680,3 +687,33 @@ def test_estimator_on_the_card_matches_the_cpu(cuda):
     want, _ = drive_api(torch, Estimator(cfg, device="cpu"), msgs)
     compare_api_frames("estimator", got, want)
     assert len(got) == 10 and got[-1][1][0] > 0
+
+
+def test_match_tracker_on_the_card_matches_the_cpu(cuda):
+    from chip_smoke import compare_front_end, image_config
+    from xivo_tpu_torch.sim.image_stream import VIS_DT, build_image_stream
+    cfg = image_config(tracker_type="MATCH", detector="ORB",
+                           descriptor="orb")
+    stream = build_image_stream(cfg, total_time=VIS_DT * 3 + 0.01)
+    assert stream[0].image.shape[0] == 3
+    compare_front_end(torch, "match", cfg, stream, 3)
+
+
+@pytest.mark.parametrize("kind", ["orb", "brisk"])
+def test_steered_words_on_the_card_match_the_cpu(cuda, kind):
+    from xivo_tpu_torch.frontend import brief, descriptors, fast
+    from xivo_tpu_torch.frontend.image import blur5
+    # random 8 x 8 px tiles: corners everywhere
+    rng = np.random.default_rng(6)
+    img = torch.tensor(np.kron(rng.uniform(0, 255, (2, 32, 40)),
+                               np.ones((8, 8))), dtype=torch.float32)
+    xy, _, ok = fast.select_topk(
+        fast.nms3(fast.ofast_score(img, 15.0)), 128, 8,
+        torch.zeros((2, 1, 2)), torch.zeros((2, 1), dtype=torch.bool), 15)
+    assert int(ok.sum()) > 100
+    k = descriptors.KINDS[kind]
+    want = descriptors.extract(k, blur5(img), xy)
+    got = descriptors.extract(k, blur5(img.to(cuda)), xy.to(cuda)).cpu()
+    flips = int(brief.popcount32(torch.bitwise_xor(got, want)).sum(-1)[ok]
+                .sum())
+    assert flips <= DESC_BIT_SHARE * int(ok.sum()) * brief.N_BITS, flips

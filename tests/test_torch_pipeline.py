@@ -9,7 +9,8 @@
   the same float64 algebra in another operation order; the difference
   seen is ~1e-14) and the integer counts of ``StepOutputs`` match exactly;
 * the package imports no JAX, its entry points run on CUDA unless given
-  ``device="cpu"``, and the filter options outside this slice raise.
+  ``device="cpu"``, and every filter and front-end option runs from
+  every entry point.
 
 ``jax_cfg``/``torch_cfg`` are shared with the other ``test_torch_*`` files.
 """
@@ -223,6 +224,8 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.filter.refine, xivo_tpu_torch.filter.validate\n"
         "import xivo_tpu_torch.filter.propagate_batched\n"
         "import xivo_tpu_torch.filter.vi_init\n"
+        "import xivo_tpu_torch.frontend.descriptors\n"
+        "import xivo_tpu_torch.sim.texture\n"
         "import xivo_tpu_torch.tools.profile_linalg\n"
         "import xivo_tpu_torch.tools.chol_breakdown\n"
         "import xivo_tpu_torch.tools.hamming_breakdown\n"
@@ -268,29 +271,58 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     assert interop.state_from_numpy(ns, "cpu").P.device.type == "cpu"
 
 
-@pytest.mark.parametrize("option,item", [
-    (("tracker_type", "MATCH"), "A.12"), (("detector", "GFTT"), "A.12"),
-    (("descriptor_type", "orb"), "A.12")])
-def test_options_outside_the_slice_raise(option, item):
-    """Each branch the port leaves out names the ROADMAP.md item (queue
-    A) that brings it, from every entry point."""
-    from xivo_tpu_torch.filter.pipeline import vio_frame
-    from xivo_tpu_torch.frontend.tracker import (tracker_only_frame,
-                                                 vio_frame_image)
-    if isinstance(option, dict):
-        over = option
-    else:
-        name, value = option if isinstance(option, tuple) else (option, True)
-        over = {name: value}
-    cfg = dataclasses.replace(torch_cfg(), **over)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        batch_states(cfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        vio_frame(cfg, None, *([None] * 8))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        vio_frame_image(cfg, None, None, *([None] * 5))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tracker_only_frame(cfg, None, None, None)
+FRONT_END_OPTIONS = {
+    "MATCH": {"tracker_type": "MATCH"},
+    "AGAST": {"detector": "AGAST"}, "GFTT": {"detector": "GFTT"},
+    "ORB": {"detector": "ORB"}, "OFAST": {"detector": "OFAST"},
+    "BRISK": {"detector": "BRISK"},
+    "orb": {"descriptor_type": "orb"}, "freak": {"descriptor_type": "freak"},
+    "brisk": {"descriptor_type": "brisk"}}
+
+
+@pytest.mark.parametrize("name", sorted(FRONT_END_OPTIONS))
+def test_front_end_options_run_from_every_entry_point(name):
+    """The image front end's choices (ROADMAP A.12b: the MATCH tracker,
+    every detector, every descriptor) are accepted by every image entry
+    point (IMG_CFG's camera at the tiny Dims, float64): two frames of
+    ``run_batch_image`` (``vio_frame_image``) and one of
+    ``tracker_only_frame`` run to finite poses and live tracks, and the
+    ``Estimator``'s image path takes the first frames of a rendered
+    stream."""
+    from test_torch_api_runners import image_messages
+    from xivo_tpu_torch.api import Estimator
+    from xivo_tpu_torch.filter.state import check_supported
+    from xivo_tpu_torch.frontend.tracker import tracker_only_frame
+    from xivo_tpu_torch.runner import (batch_frontend_states,
+                                       image_inputs_to_device,
+                                       run_batch_image)
+    from xivo_tpu_torch.sim.configs import IMG_CFG
+    from xivo_tpu_torch.sim.image_stream import build_image_stream
+    cfg = dataclasses.replace(
+        config_from_json(IMG_CFG, dims=Dims(*TINY), dtype="float64",
+                         **SLICE), **FRONT_END_OPTIONS[name])
+    check_supported(cfg)
+    ii, gt = build_image_stream(cfg, total_time=0.14, n_points=300,
+                                world_seed=0, imu_T=3.0)
+    s = batch_states(cfg, 2, device="cpu")
+    fes = batch_frontend_states(cfg, 2, device="cpu")
+    s1, _, out = run_batch_image(cfg, s, fes, image_inputs_to_device(
+        type(ii)(*(a[:2] for a in ii)), "cpu", batch=2))
+    assert torch.isfinite(out.Tsb).all() and torch.isfinite(s1.P).all()
+    assert int(out.num_tracked[:, 1].min()) > 0
+    s2, fes2 = tracker_only_frame(cfg, s, fes, torch.from_numpy(
+        np.stack([ii.image[0]] * 2)))
+    assert bool(fes2.initialized.all()) and int(s2.features.active.sum()) > 0
+
+    est = Estimator(cfg, device="cpu")
+    for t, kind, a, b in image_messages(cfg, 4):
+        if kind == "imu":
+            est.InertialMeas(t, a, b)
+        else:
+            est.VisualMeas(t, a)
+    est.flush()
+    assert est.num_tracked_features() > 0
+    assert all(np.isfinite(x).all() for x in est.gsb())
 
 
 FILTER_OPTIONS = {

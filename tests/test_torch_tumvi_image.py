@@ -2,8 +2,8 @@
 the CPU in float64.
 
 * ``check_supported`` accepts ``cfg/tumvi_cam0.json`` and
-  ``cfg/tumvi_cam0_accuracy.json`` unmodified, and still refuses the
-  options this slice does not bring, under the same ROADMAP items;
+  ``cfg/tumvi_cam0_accuracy.json`` unmodified, and with the MATCH
+  tracker, the GFTT detector or the ORB descriptor;
 * ``vio_frame_image`` with ``cfg/tumvi_cam0.json``'s settings: the
   equidistant lens, prediction-seeded LK with the descriptor gate and
   dropped-track rescue, homography outlier rejection (the reference's
@@ -33,7 +33,6 @@ from test_torch_image_pipeline import (check_outputs, check_tables,
 from xivo_tpu.filter.config import load_json_with_comments
 from xivo_tpu_torch.filter.config import config_from_json
 from xivo_tpu_torch.filter.state import check_supported
-from xivo_tpu_torch.frontend.tracker import vio_frame_image
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,14 +49,9 @@ def test_shipped_tumvi_configs_are_supported(name):
     cfg = config_from_json(shipped(name))
     assert (cfg.cam_model, cfg.do_outlier_rejection) == ("equidistant", True)
     check_supported(cfg)
-    for over, item in (({"tracker_type": "MATCH"}, "A.12"),
-                       ({"detector": "GFTT"}, "A.12"),
-                       ({"descriptor_type": "orb"}, "A.12")):
-        bad = dataclasses.replace(cfg, **over)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            check_supported(bad)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            vio_frame_image(bad, None, None, *([None] * 5))
+    for over in ({"tracker_type": "MATCH"}, {"detector": "GFTT"},
+                 {"descriptor_type": "orb"}):
+        check_supported(dataclasses.replace(cfg, **over))
 
 
 def displaced(image):

@@ -134,19 +134,11 @@ def torch_dtype(cfg: VIOConfig) -> torch.dtype:
 
 
 def check_supported(cfg: VIOConfig):
-    """Raise on configurations whose code paths are not ported yet, naming
-    the ROADMAP.md item (queue A) that brings each."""
-    if cfg.tracker_type.upper() == "MATCH":
-        raise NotImplementedError(
-            "the MATCH tracker comes with ROADMAP A.12")
-    if cfg.detector.upper() != "FAST":
-        raise NotImplementedError(
-            f"detector {cfg.detector!r}: only FAST is ported; the others "
-            "come with ROADMAP A.12")
-    if cfg.descriptor_type.lower() != "brief":
-        raise NotImplementedError(
-            f"descriptor {cfg.descriptor_type!r}: only BRIEF is ported; the "
-            "others come with ROADMAP A.12")
+    """Refuse a configuration whose code paths are not ported yet, naming
+    the ROADMAP.md item (queue A) that brings them. None is left: every
+    option a config holds is ported. Distribution (ROADMAP A.18) is
+    refused where its arguments are taken (``map/mapper.py``'s
+    ``matcher=``, ``map/bigmap.py``'s ``refine_map(mesh=)``)."""
 
 
 def init_state(cfg: VIOConfig, device="cuda") -> VIOState:

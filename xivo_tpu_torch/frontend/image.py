@@ -115,13 +115,21 @@ def patch_bilinear_points(patch, pts):
     return (1.0 - fx) * col0 + fx * col1
 
 
+def crop_at(img, xy, S: int):
+    """One (S, S) patch crop per keypoint: img (B, H, W), xy (B, K, 2)
+    continuous keypoints -> (patches (B, K, S, S), each patch's origin in
+    the image (B, K, 2) = round(xy) - S // 2). A point p of the image is
+    p - origin in its patch (``patch_bilinear_points``)."""
+    cx = torch.round(xy[..., 0]).to(torch.int64)
+    cy = torch.round(xy[..., 1]).to(torch.int64)
+    patch = extract_patch(img, cx, cy, S)
+    return patch, torch.stack([cx, cy], dim=-1).to(img.dtype) - S // 2
+
+
 def sample_rel(img, xy, rel, S: int):
     """``bilinear(img, xy + rel)`` through one patch crop per keypoint:
     img (B, H, W), xy (B, K, 2) continuous keypoints, rel (P, 2) offsets
     with |rel| <= S // 2 - 1 -> (B, K, P)."""
-    cx = torch.round(xy[..., 0]).to(torch.int64)
-    cy = torch.round(xy[..., 1]).to(torch.int64)
-    patch = extract_patch(img, cx, cy, S)
-    base = torch.stack([cx, cy], dim=-1).to(img.dtype) - S // 2
+    patch, base = crop_at(img, xy, S)
     return patch_bilinear_points(patch, (xy[..., None, :] + rel)
                                  - base[..., None, :])

@@ -11,10 +11,15 @@ its own lens, the intrinsics and distortion the filter starts from
 ``cfg.cam_params`` itself, rows and columns first, as the intrinsics
 vector (``scripts/bench_image.py:61-67``), so its dots do not land where
 its filter's lens puts them; the port renders through the lens instead.
-Everything stays in numpy; ``runner.image_inputs_to_device`` moves it to
-the device once.
+With ``world`` (a ``sim/texture.TexturedBoxWorld`` built on the config's
+lens) the frames are that textured room seen along the same trajectory,
+in place of the dots, rendered on a thread each. Everything stays in
+numpy; ``runner.image_inputs_to_device`` moves it to the device once.
 """
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -30,13 +35,14 @@ MOTION = "gentle"
 
 
 def build_image_stream(cfg: VIOConfig, total_time=6.0, n_points=800,
-                       world_seed=2, seed=1, imu_T=8.0):
+                       world_seed=2, seed=1, imu_T=8.0, world=None):
     """One sequence through the config's camera. Returns
     (ImageInputs of numpy arrays: gyro/accel (T, KI, 3), imu_dt (T, KI),
     frame_dt (T,), image (T, rows, cols) float32; gt dict with the poses
     Rsb (T, 3, 3) and Tsb (T, 3) at each frame, the frame times t, and
     gyro0/accel0, the IMU reading at t = 0 that seeds the state). The
-    defaults are the image benchmark's stream (120 frames over 6 s)."""
+    defaults are the image benchmark's stream (120 frames over 6 s).
+    ``world``, if given, renders each frame (``world.render``)."""
     imu = get_imu_sim(MOTION, T=imu_T, noise_accel=1e-4, noise_gyro=1e-5,
                       seed=seed)
     Xs = make_world(n_points, seed=world_seed)
@@ -64,8 +70,11 @@ def build_image_stream(cfg: VIOConfig, total_time=6.0, n_points=800,
             ti += IMU_DT
             i += 1
         Rsb, Tsb = imu.gsb(t)
-        images.append(render_dots(Xs, Rsb @ Rbc, Rsb @ Tbc + Tsb, K, cols,
-                                  rows, project_fn=project_fn))
+        if world is None:
+            images.append(render_dots(Xs, Rsb @ Rbc, Rsb @ Tbc + Tsb, K,
+                                      cols, rows, project_fn=project_fn))
+        else:
+            images.append((Rsb @ Rbc, Rsb @ Tbc + Tsb))
         gyro.append(gys)
         accel.append(acs)
         dts.append(dt)
@@ -75,6 +84,10 @@ def build_image_stream(cfg: VIOConfig, total_time=6.0, n_points=800,
         gt["Tsb"].append(Tsb)
         t_prev = t
         t += VIS_DT
+    if world is not None:
+        # the textured renders are whole-image numpy work: a thread each
+        with ThreadPoolExecutor(min(len(images), os.cpu_count() or 1)) as ex:
+            images = list(ex.map(lambda pose: world.render(*pose), images))
     fi = ImageInputs(np.stack(gyro), np.stack(accel), np.stack(dts),
                      np.asarray(fdts, dtype), np.stack(images))
     gt = {k: np.asarray(v) for k, v in gt.items()}
