@@ -264,6 +264,24 @@ slice 14, the rest of image mode (phases 32-33 run last):
    16), compared and counted as phase 32: ATE-RMSE of sequence 0 below
    TEX_ATE_BOUND, TEX_MIN_TRACKED tracks from frame 10 on, B1-B3 once and
    B4/B5 4 times a frame.
+slice 15, distribution (phase 34 runs last, on a one-rank NCCL group of
+cuda:0 brought up, with its communicator, before any sync check, and
+taken down at the end; each path counted under the sync debug mode):
+34. (a) ``runner.make_sharded_runner`` on DIST_FRAMES frames of phase 5's
+   workload (B = 256, default Dims) against ``run_batch`` on the same
+   inputs: outputs and final states equal, B1-B3 once a frame in both;
+   (b) ``dist/retrieval.make_sharded_matcher`` against ``hamming_nn`` on
+   phase 10's recorded searches (without their query-row masks) and the
+   random (64, 256, 8) x (64, 20000, 8) case, exactly, B6 once a call,
+   and ``detect_loop_closures(matcher=)`` on the mapped main run's state
+   at frame 131 against the call without it; (c) ``refine_map(mesh=)``
+   on phase 13's map against ``refine_map()``: each chi2 within
+   DIST_CHI2_RTOL of the single run's plus DIST_CHI2_ATOL of its first,
+   both timed; (d) ``dist/segments.run_segment_parallel`` over four
+   segments of phase 5's stream length on the orbit, with the sharded
+   runner against the default (``run_batch``), each runner's frame loop
+   under the sync check: fused trajectory and outputs equal, launches
+   equal.
 Phase 9 also profiles two frames of phase 21's path (frames 30-31, from
 the main run's state at frame 30), with
 the IMU-sample updates and the Joseph updates among its stages, and times
@@ -452,6 +470,16 @@ FRONT_COUNTS = ("num_tracked", "num_instate_features", "num_instate_groups",
                 "num_tracker_outlier_rejected")
 DET_SCORES = ("agast_score", "shi_tomasi_score", "harris_score",
               "ofast_score", "brisk_score")
+# slice 15, distribution (phase 34): the sharded runner on DIST_FRAMES
+# frames of phase 5's workload (features enter the state by frame 4);
+# refine_map(mesh=) against refine_map() on phase 13's map: each chi2
+# within DIST_CHI2_RTOL of the single run's plus DIST_CHI2_ATOL of its
+# first (float32 sums in another order may part by a few ulp of the
+# largest term; at one rank the two run the same operations); segments
+# over the orbit of phase 5's length
+DIST_FRAMES = 20
+DIST_CHI2_RTOL, DIST_CHI2_ATOL = 1e-5, 1e-7
+DIST_SEG = dict(n_segments=4, overlap=10, boot_frames=12)
 # B6's bound by operations: the least work a (query, entry) pair's
 # distance needs, whatever the kernel does. 8 XORs; carry-save adders
 # (a sum and a carry, one 3-input logic operation each) over seven of the
@@ -1664,7 +1692,8 @@ def compare_mapped_paths(torch, cfg, stream):
 
 def mapped_phases(torch, lc, hm, others):
     """Phases 10-12: returns (the B6 JSON entry, launches on the mapped
-    main path, the state and maps before the profiled window, inputs)."""
+    main path, the state and maps before the profiled window, inputs, and
+    the frame's recorded B6 inputs (q, desc, valid) on the host)."""
     from xivo_tpu_torch.runner import run_batch_mapped
     cfg = mapped_config()
     stream = mapped_stream(cfg)
@@ -1726,7 +1755,9 @@ def mapped_phases(torch, lc, hm, others):
     # phase 10: B6 against its plain version
     entry = check_hamming(torch, hm, seen["hamming_nn"])
     entry["launches"] = launches["hamming_nn"]
-    return entry, launches, cfg, before, window(fib, p, q)
+    searches = [moved(torch, tuple(a[:3]), "cpu")
+                for a in seen["hamming_nn"]]
+    return entry, launches, cfg, before, window(fib, p, q), searches
 
 
 def synthetic_bigmap(torch, cfg, n_lm=4096, n_kf=256, obs=4, noise=0.05,
@@ -3102,6 +3133,182 @@ def textured_phase(torch, kernels, match_stream):
     return launches
 
 
+def same_tree(torch, a, b):
+    """Whether two (nested) tuples of tensors are equal, leaf by leaf."""
+    if isinstance(a, tuple):
+        return all(same_tree(torch, x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def on_device(torch, fn):
+    """fn() with the sync debug mode set to raise (the caller counts)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def dist_phase(torch, kernels, searches, mapped):
+    """Phase 34: the distribution layer on a one-rank NCCL group of cuda:0,
+    each path counted under the sync debug mode against the path without
+    it. `searches`: phase 10's recorded B6 inputs; `mapped`: (config,
+    state, maps) of the mapped main run at frame 131, on the host.
+    Returns ({path: launches}, B6's JSON entry's additions)."""
+    import torch.distributed as tdist
+
+    from xivo_tpu_torch.dist import make_sharded_matcher
+    from xivo_tpu_torch.dist.multihost import global_mesh
+    from xivo_tpu_torch.dist.segments import run_segment_parallel
+    from xivo_tpu_torch.map.bigmap import refine_map
+    from xivo_tpu_torch.map.mapper import detect_loop_closures
+    from xivo_tpu_torch.ops import hamming as hm
+    from xivo_tpu_torch.runner import (draw_generator, fit_substeps,
+                                       inputs_to_device, make_sharded_runner,
+                                       p3p_draws, run_batch)
+    from xivo_tpu_torch.sim.stream import build_pcw_stream
+    t_phase = time.time()
+    # the group and NCCL's communicator, before any sync check
+    group = global_mesh()
+    warm = torch.ones(1, device=DEV)
+    tdist.all_reduce(warm, group=group)
+    torch.cuda.synchronize()
+    n = tdist.get_world_size(group)
+    print(f"dist: {n}-rank {tdist.get_backend(group)} group on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    launches, extra = {}, {}
+
+    # (a) the sharded runner on the PCW main path at full width
+    cfg = pcw_config()
+    s, fib, _ = make_run(cfg, torch, DEV, B, frames=DIST_FRAMES)
+    sharded = make_sharded_runner(cfg, group)
+    (s1, o1), w1, l1 = counted(torch, kernels, lambda: sharded(s, fib))
+    (s0, o0), w0, l0 = counted(torch, kernels,
+                               lambda: run_batch(cfg, s, fib))
+    inst = int(o1.num_instate_features[:, -1].min())
+    print(f"dist (a) sharded runner: B={B} T={DIST_FRAMES} "
+          f"D={cfg.dims.full}, wall {w1:.3f} s against run_batch's "
+          f"{w0:.3f} s; in-state features at the last frame >= {inst}; "
+          f"launches {l1} (run_batch {l0})", flush=True)
+    if not (same_tree(torch, o1, o0) and same_tree(torch, s1, s0)):
+        raise AssertionError("the sharded runner differs from run_batch")
+    want = {k.name: 0 for k in kernels}
+    want.update({name: DIST_FRAMES for name in
+                 ("chol_lanes", "chol_inv_lanes", "tri_inv_lanes")})
+    if not (l1 == l0 == want and inst > 0):
+        raise AssertionError(f"launches {l1}, {l0}, expected {want}; "
+                             f"in-state features {inst}")
+    launches["sharded_pcw"] = l1
+    del s, fib, s1, o1, s0, o0
+
+    # (b) the sharded matcher on phase 10's searches and the random case;
+    # detect_loop_closures with it on the mapped main run's state
+    match = make_sharded_matcher(group)
+    cases = [(f"recorded {k}", tuple(t.to(DEV) for t in a[:3]))
+             for k, a in enumerate(searches)]
+    cases.append(("random", random_hamming_inputs(torch, MAP_B, 20000, 256,
+                                                  seed=256)))
+    total = {k.name: 0 for k in kernels}
+    for label, (q, d, v) in cases:
+        (nn, nd), _, got = counted(torch, kernels, lambda: match(q, d, v))
+        dd, ii = hm.hamming_nn(q, d, v)
+        if not (torch.equal(nn, ii) and torch.equal(nd, dd)):
+            raise AssertionError(f"sharded matcher differs ({label})")
+        total = {k: total[k] + got[k] for k in total}
+    q, d, v = cases[-1][1]
+    ms_match = cuda_ms(torch, lambda: match(q, d, v))
+    ms_single = cuda_ms(torch, lambda: hm.hamming_nn(q, d, v))
+    mcfg, st, mp = mapped
+    st, mp = moved(torch, (st, mp), DEV)
+    u = p3p_draws(mcfg, st, draw_generator(st, 3))
+    kw = dict(nn_dist_thresh=mcfg.lc_nn_dist_thresh,
+              ransac_thresh=mcfg.lc_ransac_thresh,
+              min_matches=mcfg.lc_min_matches)
+    lc1, _, got = counted(torch, kernels, lambda: detect_loop_closures(
+        mcfg, st, mp, u, matcher=match, **kw))
+    lc0 = detect_loop_closures(mcfg, st, mp, u, **kw)
+    if not same_tree(torch, tuple(lc1), tuple(lc0)):
+        raise AssertionError("detect_loop_closures(matcher=) differs")
+    total = {k: total[k] + got[k] for k in total}
+    print(f"dist (b) sharded matcher: {len(cases)} searches (phase 10's "
+          f"{len(cases) - 1}, random (64, 256, 8) x (64, 20000, 8)) equal "
+          f"to hamming_nn; random: {ms_match:.4f} ms against "
+          f"{ms_single:.4f} ms alone; detect_loop_closures(matcher=) on "
+          f"the mapped state at frame {MAP_CAPTURE_FRAME + 1} equal, "
+          f"{int(lc1[2].sum())} inliers on {int(lc1[3].sum())} of "
+          f"{MAP_B} sequences; launches {total}", flush=True)
+    want = {k.name: 0 for k in kernels}
+    want["hamming_nn"] = len(cases) + 1
+    if total != want or not bool(lc1[3].any()):
+        raise AssertionError(f"launches {total}, expected {want}, or no "
+                             f"closure")
+    launches["sharded_matcher"] = total
+    extra["sharded_matcher_ms"] = ms_match
+    del cases, st, mp, u
+
+    # (c) refine_map(mesh=) on phase 13's map
+    bm = synthetic_bigmap(torch, mcfg)
+    times, hists = {}, {}
+    for name, mesh in (("single", None), ("mesh", group)):
+        refine_map(mcfg, bm, iters=1, mesh=mesh)            # warm
+        torch.cuda.synchronize()
+        (out, chi2), times[name], _ = counted(
+            torch, kernels, lambda: refine_map(mcfg, bm, iters=8,
+                                               mesh=mesh))
+        hists[name] = (out, chi2[0].double().cpu().numpy())
+    h1, h0 = hists["mesh"][1], hists["single"][1]
+    dchi = np.abs(h1 - h0)
+    lim = DIST_CHI2_RTOL * h0 + DIST_CHI2_ATOL * h0[0]
+    dX = float((hists["mesh"][0].Xs - hists["single"][0].Xs).abs().max())
+    print(f"dist (c) refine_map(mesh=): 4096 landmarks x 256 keyframes, 8 "
+          f"iterations in {times['mesh'] * 1e3:.1f} ms against "
+          f"{times['single'] * 1e3:.1f} ms alone; chi2 {h1[0]:.6e} -> "
+          f"{h1[-1]:.6e}; largest |dchi2| / limit "
+          f"{float((dchi / lim).max()):.3e}; landmarks within "
+          f"{dX:.3e} m", flush=True)
+    if not (dchi <= lim).all():
+        raise AssertionError("refine_map(mesh=)'s chi2 history differs")
+    del bm, hists
+
+    # (d) segments over the sharded runner against the default runner;
+    # each runner's frame loop under the sync debug mode, its upload
+    # before it
+    fi, _ = build_pcw_stream(cfg, total_time=TOTAL_TIME, noise_px=0.25,
+                             motion="orbit")
+
+    def loop(make):
+        def run(states, fis):
+            c = fit_substeps(cfg, fis)
+            f = inputs_to_device(fis, DEV)
+            torch.cuda.synchronize()
+            return on_device(torch, lambda: make(c)(states, f))
+        return run
+    runs = {}
+    for name, make in (
+            ("default", lambda c: lambda st, f: run_batch(c, st, f)),
+            ("sharded", lambda c: make_sharded_runner(c, group))):
+        runs[name], _, launches[f"segments_{name}"] = counted(
+            torch, kernels, lambda: run_segment_parallel(
+                cfg, fi, runner=loop(make), device=DEV, **DIST_SEG),
+            sync_check=False)
+    (f1, o1), (f0, o0) = runs["sharded"], runs["default"]
+    L = int(o1.Tsb.shape[1])
+    print(f"dist (d) run_segment_parallel: {DIST_SEG['n_segments']} "
+          f"segments of {L} frames over the {fi.frame_dt.shape[0]}-frame "
+          f"orbit; sharded runner against the default: fused trajectory "
+          f"and outputs equal; in-state features at the segments' last "
+          f"frame {o1.num_instate_features[:, -1].tolist()}; launches "
+          f"{launches['segments_sharded']}", flush=True)
+    if not (np.array_equal(f1, f0) and same_tree(torch, o1, o0)
+            and launches["segments_sharded"] == launches[
+                "segments_default"]):
+        raise AssertionError("segments over the sharded runner differ")
+    tdist.destroy_process_group()
+    print(f"phase 34 done in {time.time() - t_phase:.1f} s on "
+          f"{card_line()}", flush=True)
+    return launches, extra
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3139,8 +3346,9 @@ def main():
     tumvi_checks, tumvi_launches, tumvi_acc_launches, equi_launches, \
         tumvi = slice11_phases(torch, lc, lko, hm, chol)
     stamp("TUM-VI phases", t_start)
-    hm_kernel, map_launches, mcfg, before, win = mapped_phases(
+    hm_kernel, map_launches, mcfg, before, win, searches = mapped_phases(
         torch, lc, hm, chol.KERNELS)
+    dist_mapped = (mcfg,) + tuple(moved(torch, before, "cpu"))
     stamp("mapped phases", t_start)
     refine_phase(torch, mcfg)
     img_map_launches = image_mapped_phase(
@@ -3166,11 +3374,16 @@ def main():
     tex_launches = textured_phase(torch, all_kernels, match_stream)
     del match_stream
     stamp("image-mode options phases", t_start)
+    dist_launches, dist_extra = dist_phase(torch, all_kernels, searches,
+                                           dist_mapped)
+    del searches, dist_mapped
+    stamp("distribution phase", t_start)
     for k in kernels:
         k["oos_shape"] = oos_shapes[k["name"]]
         k["options_path"] = opt_checks[k["name"]]
         if k["name"] == "chol_lanes":
             k["full_form_compression"] = full_b1
+    hm_kernel.update(dist_extra)
     kernels += lk_kernels + [hm_kernel, chol_entry]
     for k in kernels:
         name = k["name"]
@@ -3196,6 +3409,8 @@ def main():
         k["launches_batched_path"] = bat_launches[name]
         k["launches_match_path"] = match_launches[name]
         k["launches_textured_path"] = tex_launches[name]
+        for path, got in dist_launches.items():
+            k[f"launches_{path}_path"] = got[name]
         if name in tumvi_checks:
             k["tumvi_shape"] = tumvi_checks[name]
     stamp("elapsed", t_start, ":")

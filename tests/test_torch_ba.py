@@ -10,7 +10,8 @@ package, on the CPU, in float64.
 * ``retire_features_obs`` from a live filter state (20 frames of the PCW
   path, tiny Dims) into an empty map and again into the filled one:
   keyframe ring, observation rows and landmarks, integers exactly;
-* ``mesh=`` names ROADMAP A.18.
+* ``mesh=`` (the landmark-sharded solver of ``dist/ba.py``) on a
+  one-rank group equals the call without it.
 """
 import jax
 import jax.numpy as jnp
@@ -104,11 +105,28 @@ def test_refine_map_matches_reference(bigmap):
     assert err1 < 0.2 * err0
 
 
-def test_refine_map_mesh_names_the_roadmap_item(bigmap):
+@pytest.fixture
+def one_rank_gloo():
+    """A one-rank gloo group of this process, taken down after the test so
+    that no later test on this worker inherits it."""
+    import torch.distributed as dist
+    from xivo_tpu_torch.dist.multihost import global_mesh
+    yield global_mesh("gloo")
+    dist.destroy_process_group()
+
+
+def test_refine_map_mesh_names_the_roadmap_item(bigmap, one_rank_gloo):
+    """``mesh=`` (ROADMAP A.18): the landmark-sharded solver on a one-rank
+    gloo group of this process gives ``refine_map()``'s result exactly
+    (``test_torch_dist.py`` holds it at two ranks)."""
     cfg, bm, _, _ = bigmap
-    with pytest.raises(NotImplementedError, match="ROADMAP A.18"):
-        tb.refine_map(None, interop.bigmap_from_numpy(lead(bm), "cpu"),
-                      mesh=object())
+    tbm = interop.bigmap_from_numpy(lead(bm), "cpu")
+    want, wchi = tb.refine_map(None, tbm, iters=12, damping=1e-6)
+    got, chi = tb.refine_map(None, tbm, iters=12, damping=1e-6,
+                             mesh=one_rank_gloo)
+    assert torch.equal(chi, wchi)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_retire_features_obs_matches_reference():

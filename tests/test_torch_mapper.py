@@ -15,7 +15,8 @@ against the JAX package, on the CPU, in float64.
   within 1e-9, the drift corrected; again with the anchor-pose rows on;
 * ``retire_features`` from the drift scenario's state into an empty and a
   filled map, fusion on;
-* the ``matcher=`` refusal names ROADMAP A.18.
+* ``matcher=`` (the sharded search of ``dist/retrieval.py``) on a
+  one-rank group equals the search without it.
 """
 import jax
 import jax.numpy as jnp
@@ -212,11 +213,32 @@ def test_retire_features_matches_reference(drift):
             + int(jm.n_merged)
 
 
-def test_sharded_matcher_names_the_roadmap_item(drift):
-    _, tc, _, ms, ts, _ = drift
-    with pytest.raises(NotImplementedError, match="ROADMAP A.18"):
-        tm.detect_loop_closures(tc, ts, port_map(ms), None,
-                                matcher=object())
+@pytest.fixture
+def one_rank_gloo():
+    """A one-rank gloo group of this process, taken down after the test so
+    that no later test on this worker inherits it."""
+    import torch.distributed as dist
+    from xivo_tpu_torch.dist.multihost import global_mesh
+    yield global_mesh("gloo")
+    dist.destroy_process_group()
+
+
+def test_sharded_matcher_names_the_roadmap_item(drift, one_rank_gloo):
+    """``matcher=`` (ROADMAP A.18): the sharded matcher on a one-rank gloo
+    group of this process finds what the single search finds, on the drift
+    scenario where the closure fires (``test_torch_dist.py`` holds it at
+    two ranks)."""
+    from xivo_tpu_torch.dist import make_sharded_matcher
+    _, tc, s, ms, ts, _ = drift
+    _, u = reference_draws(s.key[None], tc.dims.n_features, jnp.float64)
+    u = torch.from_numpy(np.array(u))
+    want = tm.detect_loop_closures(tc, ts, port_map(ms), u)
+    got = tm.detect_loop_closures(
+        tc, ts, port_map(ms), u,
+        matcher=make_sharded_matcher(one_rank_gloo))
+    assert bool(want[3][0]) and int(want[2].sum()) >= 5
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_batch_maps_on_cpu():

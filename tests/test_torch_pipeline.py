@@ -226,6 +226,9 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.filter.vi_init\n"
         "import xivo_tpu_torch.frontend.descriptors\n"
         "import xivo_tpu_torch.sim.texture\n"
+        "import xivo_tpu_torch.dist, xivo_tpu_torch.dist.ba\n"
+        "import xivo_tpu_torch.dist.retrieval, xivo_tpu_torch.dist.segments\n"
+        "import xivo_tpu_torch.dist.multihost\n"
         "import xivo_tpu_torch.tools.profile_linalg\n"
         "import xivo_tpu_torch.tools.chol_breakdown\n"
         "import xivo_tpu_torch.tools.hamming_breakdown\n"

@@ -85,10 +85,12 @@ def chi2_only(p: BAProblem, huber_thresh: float):
 ACCEPT_MARGIN = 1e-5
 
 
-def ba_iteration(p: BAProblem, damping, huber_thresh: float):
-    """One damped Gauss-Newton step at lambda = damping (B,). Returns (the
-    stepped problem, chi2 (B,) at the input p)."""
-    B, Lm, K = p.mask.shape
+def normal_blocks(p: BAProblem, lam, huber_thresh: float):
+    """The landmark-eliminated normal equations of the landmarks p holds,
+    at lambda = lam (B,): (U (B,K,6,6), S_red (B,K,6,K,6), b_red (B,K,6),
+    chi2 (B,) at p, and (W, Vinv, bl) for the back-substitution). Every
+    term but the last is a sum over landmarks, so shards of them add up
+    (``dist/ba.py``)."""
     dtype, dev = p.Xs.dtype, p.Xs.device
     r, Jp, Jx, use, chi2 = _build_normal_eq(p, huber_thresh)
     total_chi2 = torch.sum(chi2, dim=(1, 2))
@@ -99,21 +101,29 @@ def ba_iteration(p: BAProblem, damping, huber_thresh: float):
     bp = -torch.einsum("blkri,blkr->bki", Jp, r)            # (B,K,6)
     bl = -torch.einsum("blkri,blkr->bli", Jx, r)            # (B,Lm,3)
 
-    lam = damping.to(dtype)
     V = V + lam[:, None, None, None] * torch.eye(3, dtype=dtype, device=dev)
     Vinv = torch.linalg.inv_ex(V).inverse
 
-    # S = U + lam I (block diagonal) - sum_l W_l Vinv_l W_l^T
+    # S_red = sum_l W_l Vinv_l W_l^T, b_red = bp - sum_l W_l Vinv_l bl_l
     WVi = torch.einsum("blkij,bljm->blkim", W, Vinv)         # (B,Lm,K,6,3)
     S_red = torch.einsum("blkim,blqjm->bkiqj", WVi, W)       # (B,K,6,K,6)
+    b_red = bp - torch.einsum("blkim,blm->bki", WVi, bl)
+    return U, S_red, b_red, total_chi2, (W, Vinv, bl)
+
+
+def solve_reduced(fixed, U, S_red, b_red, lam):
+    """The pose step dp (B,K,6) of the reduced camera system
+    S = U + lam I (block diagonal) - S_red, S dp = b_red, by Cholesky."""
+    B, K = fixed.shape
+    dtype, dev = U.dtype, U.device
     Ud = U + lam[:, None, None, None] * torch.eye(6, dtype=dtype, device=dev)
     S = torch.einsum("kq,bkij->bkiqj",
                      torch.eye(K, dtype=dtype, device=dev), Ud)
     S = (S - S_red).reshape(B, 6 * K, 6 * K)
-    b = (bp - torch.einsum("blkim,blm->bki", WVi, bl)).reshape(B, 6 * K)
+    b = b_red.reshape(B, 6 * K)
 
     # gauge: zero rows/cols of fixed poses, unit diagonal
-    fixvec = torch.repeat_interleave(p.fixed, 6, dim=1)
+    fixvec = torch.repeat_interleave(fixed, 6, dim=1)
     keep = (~fixvec).to(dtype)
     S = S * keep[:, :, None] * keep[:, None, :] \
         + torch.diag_embed(fixvec.to(dtype))
@@ -123,33 +133,42 @@ def ba_iteration(p: BAProblem, damping, huber_thresh: float):
     dp = torch.cholesky_solve(b[..., None], Lc)[..., 0]
     # a failed factorization gives NaN, as the reference's cho_factor does,
     # so the accept test rejects the step
-    dp = torch.where((info == 0)[:, None], dp, torch.nan).reshape(B, K, 6)
+    return torch.where((info == 0)[:, None], dp, torch.nan).reshape(B, K, 6)
 
-    # back-substitute landmarks: dl = Vinv (bl - W^T dp)
+
+def apply_step(p: BAProblem, dp, W, Vinv, bl) -> BAProblem:
+    """p moved by the pose step dp and its landmarks' back-substituted
+    steps dl = Vinv (bl - W^T dp) (observed landmarks only)."""
     Wtdp = torch.einsum("blkij,bki->blj", W, dp)
     dl = (Vinv @ (bl - Wtdp)[..., None])[..., 0]
-
     Rs = so3.project(p.Rs @ so3.exp(dp[..., :3]))
     Ts = p.Ts + dp[..., 3:]
     seen = torch.any(p.mask, dim=2)                          # only observed
-    Xs = p.Xs + dl * seen[..., None].to(dtype)
-    return p._replace(Rs=Rs, Ts=Ts, Xs=Xs), total_chi2
+    Xs = p.Xs + dl * seen[..., None].to(p.Xs.dtype)
+    return p._replace(Rs=Rs, Ts=Ts, Xs=Xs)
 
 
-def solve(p: BAProblem, iters: int = 10, damping: float = 1e-4,
-          huber_thresh: float = 1e9) -> Tuple[BAProblem, torch.Tensor]:
-    """Adaptive Levenberg-Marquardt (Optimizer::Solve's fixed budget,
-    src/optimizer.cpp:140-162): a step is accepted only if it lowers chi2
-    by ACCEPT_MARGIN and loses no active observation (lambda /= 2), else
-    the parameters stay and lambda *= 10. Returns (problem, chi2 history
-    (B, iters) at each iteration's input point)."""
+def ba_iteration(p: BAProblem, damping, huber_thresh: float):
+    """One damped Gauss-Newton step at lambda = damping (B,). Returns (the
+    stepped problem, chi2 (B,) at the input p)."""
+    lam = damping.to(p.Xs.dtype)
+    U, S_red, b_red, chi2, back = normal_blocks(p, lam, huber_thresh)
+    dp = solve_reduced(p.fixed, U, S_red, b_red, lam)
+    return apply_step(p, dp, *back), chi2
+
+
+def levenberg_marquardt(p: BAProblem, iters: int, damping: float,
+                        iteration, chi2) -> Tuple[BAProblem, torch.Tensor]:
+    """The adaptive LM loop of ``solve`` over given pieces:
+    iteration(p, lam) -> (stepped p, chi2 at p) and chi2(p) -> (chi2,
+    active count), each (B,)."""
     B = p.mask.shape[0]
     lam = torch.full((B,), damping, dtype=p.Xs.dtype, device=p.Xs.device)
     hist = []
     for _ in range(iters):
-        p_try, chi2_cur = ba_iteration(p, lam, huber_thresh)
-        chi2_try, n_try = chi2_only(p_try, huber_thresh)
-        _, n_cur = chi2_only(p, huber_thresh)
+        p_try, chi2_cur = iteration(p, lam)
+        chi2_try, n_try = chi2(p_try)
+        _, n_cur = chi2(p)
         accept = (chi2_try < chi2_cur * (1.0 - ACCEPT_MARGIN)) \
             & (n_try >= n_cur)
         p = BAProblem(*(torch.where(
@@ -159,3 +178,16 @@ def solve(p: BAProblem, iters: int = 10, damping: float = 1e-4,
                           torch.clamp(lam * 10.0, max=1e6))
         hist.append(chi2_cur)
     return p, torch.stack(hist, dim=1)
+
+
+def solve(p: BAProblem, iters: int = 10, damping: float = 1e-4,
+          huber_thresh: float = 1e9) -> Tuple[BAProblem, torch.Tensor]:
+    """Adaptive Levenberg-Marquardt (Optimizer::Solve's fixed budget,
+    src/optimizer.cpp:140-162): a step is accepted only if it lowers chi2
+    by ACCEPT_MARGIN and loses no active observation (lambda /= 2), else
+    the parameters stay and lambda *= 10. Returns (problem, chi2 history
+    (B, iters) at each iteration's input point)."""
+    return levenberg_marquardt(
+        p, iters, damping,
+        lambda q, lam: ba_iteration(q, lam, huber_thresh),
+        lambda q: chi2_only(q, huber_thresh))

@@ -136,9 +136,7 @@ def torch_dtype(cfg: VIOConfig) -> torch.dtype:
 def check_supported(cfg: VIOConfig):
     """Refuse a configuration whose code paths are not ported yet, naming
     the ROADMAP.md item (queue A) that brings them. None is left: every
-    option a config holds is ported. Distribution (ROADMAP A.18) is
-    refused where its arguments are taken (``map/mapper.py``'s
-    ``matcher=``, ``map/bigmap.py``'s ``refine_map(mesh=)``)."""
+    option a config holds is ported."""
 
 
 def init_state(cfg: VIOConfig, device="cuda") -> VIOState:

@@ -160,14 +160,21 @@ def refine_map(cfg: VIOConfig, bm: BigMapState, iters: int = 10,
                mesh=None, min_obs: int = 2
                ) -> Tuple[BigMapState, torch.Tensor]:
     """BA refinement job over the retained map. Returns (refined map, chi2
-    history (B, iters))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the landmark-sharded solver (mesh=) comes with ROADMAP A.18 "
-            "(distribution)")
+    history (B, iters)). With ``mesh``, a ``torch.distributed`` group,
+    the map's landmarks are split over its ranks (``dist/ba.py``; the
+    capacity must divide by the ranks), and every rank returns the whole
+    refined map."""
     p = map_ba_problem(bm, min_obs=min_obs)
-    p2, chi2 = ba_solve(p, iters=iters, damping=damping,
-                        huber_thresh=huber_thresh)
+    if mesh is None:
+        p2, chi2 = ba_solve(p, iters=iters, damping=damping,
+                            huber_thresh=huber_thresh)
+    else:
+        from ..dist.ba import make_distributed_solver, shard_problem
+        from ..dist.multihost import all_gather_dim
+        p2, chi2 = make_distributed_solver(
+            mesh, iters=iters, damping=damping, huber_thresh=huber_thresh)(
+                shard_problem(p, mesh))
+        p2 = p2._replace(Xs=all_gather_dim(p2.Xs, 1, mesh))
     moved = torch.any(p.mask, dim=-1)
     return bm._replace(
         Xs=torch.where(moved[..., None], p2.Xs, bm.Xs),

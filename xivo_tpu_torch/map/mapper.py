@@ -161,11 +161,9 @@ def detect_loop_closures(cfg: VIOConfig, s: VIOState, ms: MapState,
     (Mapper::DetectLoopClosures, src/mapper.cpp:335-418). The queries are
     the in-state features, by EKF slot; ``uniforms`` (B, n_hyps, F) are
     the RANSAC draws. Returns (query rows, map index, inlier mask, any
-    loop), each (B, F) but the last (B,)."""
-    if matcher is not None:
-        raise NotImplementedError(
-            "sharded retrieval (matcher=) comes with ROADMAP A.18 "
-            "(distribution)")
+    loop), each (B, F) but the last (B,). ``matcher``, from
+    ``dist/retrieval.make_sharded_matcher``, searches the map split over
+    the ranks of a process group in place of the single search."""
     fr = s.features
     kind = cam_mod.MODEL_IDS[cfg.cam_model]
     qok = s.f2row >= 0
@@ -179,7 +177,10 @@ def detect_loop_closures(cfg: VIOConfig, s: VIOState, ms: MapState,
     if cfg.lc_min_age_frames > 0:
         mvalid = mvalid & (ms.epoch <= (s.vision_counter
                                         - cfg.lc_min_age_frames)[:, None])
-    nnd, nn = hamming.hamming_nn(qdesc, ms.desc, mvalid)
+    if matcher is None:
+        nnd, nn = hamming.hamming_nn(qdesc, ms.desc, mvalid)
+    else:
+        nn, nnd = matcher(qdesc, ms.desc, mvalid)
     match = qok & (nnd < nn_dist_thresh)
     n_match = torch.sum(match.to(torch.int64), -1)
 

@@ -15,6 +15,9 @@ the frame's RANSAC draws (the reference splits the tracker's key first;
 ``frame_draws`` keeps that order for the runners and the Estimator);
 ``hom_uniforms`` (B, T, N_HYPS, NF) replaces them. The loops read
 nothing back to the host until the last frame has been enqueued.
+``make_sharded_runner`` spreads the batch over the ranks of a
+``torch.distributed`` group (``dist/multihost.py``): each rank runs its
+rows through ``run_batch`` and gathers the results.
 
 Where the config propagates through the capped substep loops
 (``propagate.uses_substep_loop``), each runner zeroes the loops' device
@@ -183,16 +186,21 @@ def _checked(cfg: VIOConfig, device, check: bool, loop):
 
 
 def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs,
-              check: bool = True, seed: int = 0, hom_uniforms=None):
+              check: bool = True, seed: int = 0, hom_uniforms=None,
+              rows=None):
     """Run B sequences of T frames. fis: (B, T, ...) tensors on the
-    states' device. Returns (final state, StepOutputs stacked (B, T, ...))."""
+    states' device. Returns (final state, StepOutputs stacked (B, T, ...)).
+    ``rows`` (offset, total): the B sequences are rows offset..offset+B-1
+    of a batch of `total`, and each frame's draws are taken for the whole
+    batch and cut to those rows, so that they equal the whole batch's."""
     gen = draw_generator(states, seed)
 
     def loop():
         s = states
         outs = []
         for t in range(fis.frame_dt.shape[1]):
-            hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms)
+            hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms,
+                                 rows=rows)
             s, out = vio_frame(cfg, s, *(a[:, t] for a in fis), hom)
             outs.append(out)
         return s, _stack(outs)
@@ -206,6 +214,34 @@ def make_batch_runner(cfg: VIOConfig):
     def run(states: VIOState, fis: FrameInputs):
         return run_batch(fit_substeps(cfg, fis), states,
                          inputs_to_device(fis, states.P.device))
+    return run
+
+
+def make_sharded_runner(cfg: VIOConfig, group=None):
+    """``make_batch_runner`` with the batch spread over the ranks of a
+    ``torch.distributed`` group (``dist.multihost.global_mesh()`` without
+    one): the counterpart of the reference's ``shard_map`` with every leaf
+    split along its leading axis. run(states, fis, seed=0, check=True)
+    takes the global (B, ...) states, on the rank's device, and inputs,
+    numpy as ``pack_frame_inputs`` packs them (the substep cap sized to
+    the whole stream, so that every rank runs one program) or tensors on
+    that device (cfg's cap). Each rank runs its rows through
+    ``dist.multihost.make_multihost_runner``, and every rank returns the
+    whole batch's final states and outputs, gathered along the batch
+    axis. B must divide by n."""
+    from .dist.multihost import (global_mesh, global_to_host_local,
+                                 host_local_to_global, make_multihost_runner)
+    group = global_mesh() if group is None else group
+
+    def run(states: VIOState, fis: FrameInputs, seed: int = 0,
+            check: bool = True):
+        host = isinstance(fis.frame_dt, np.ndarray)
+        c = fit_substeps(cfg, fis) if host else cfg
+        mine, fis = global_to_host_local((states, fis), group)
+        if host:
+            fis = inputs_to_device(fis, states.P.device)
+        return host_local_to_global(make_multihost_runner(c, group)(
+            mine, fis, seed=seed, check=check), group)
     return run
 
 
@@ -253,17 +289,23 @@ def draw_generator(s: VIOState, seed: int = 0) -> torch.Generator:
 
 
 def frame_draws(cfg: VIOConfig, s: VIOState, gen, mapped: bool, t: int = 0,
-                hom_uniforms=None, uniforms=None):
+                hom_uniforms=None, uniforms=None, rows=None):
     """Frame t's uniforms (homography, P3P), taken from `gen` in the one
     order that every runner and the Estimator keep: the tracker's
     homography draws (B, HOM_N_HYPS, NF) first, None where the config
     rejects no outliers; then, for a `mapped` step, loop closure's P3P
     RANSAC draws (B, N_HYPS, F), else None. Both in the states' dtype on
     their device; a given (B, T, ...) `hom_uniforms` or `uniforms`
-    tensor's frame t replaces the draws of its kind."""
+    tensor's frame t replaces the draws of its kind. ``rows`` (offset,
+    total) draws the homography uniforms for a batch of `total` and keeps
+    the states' B rows from offset on (``run_batch``); a mapped step
+    takes no `rows`."""
+    if mapped and rows is not None:
+        raise ValueError("rows= cuts the homography draws alone")
     hom = p3p = None
     if cfg.do_outlier_rejection:
-        hom = (_uniform(s, (HOM_N_HYPS, s.features.fid.shape[-1]), gen)
+        hom = (_uniform(s, (HOM_N_HYPS, s.features.fid.shape[-1]), gen,
+                        rows)
                if hom_uniforms is None else hom_uniforms[:, t])
     if mapped:
         p3p = p3p_draws(cfg, s, gen) if uniforms is None else uniforms[:, t]
@@ -275,9 +317,12 @@ def p3p_draws(cfg: VIOConfig, s: VIOState, gen):
     return _uniform(s, (N_HYPS, cfg.dims.n_features), gen)
 
 
-def _uniform(s: VIOState, shape, gen):
-    return torch.rand((s.P.shape[0],) + tuple(shape), generator=gen,
-                      dtype=s.P.dtype, device=s.P.device)
+def _uniform(s: VIOState, shape, gen, rows=None):
+    B = s.P.shape[0]
+    lo, total = (0, B) if rows is None else rows
+    u = torch.rand((total,) + tuple(shape), generator=gen, dtype=s.P.dtype,
+                   device=s.P.device)
+    return u if rows is None else u[lo:lo + B]
 
 
 def _stack(outs):
