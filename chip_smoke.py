@@ -1892,7 +1892,8 @@ def check_chol_blocked(torch, lc, chol):
 
 def profile_phase(torch, chol):
     """Phase 16: the linear-algebra profile, B7's entry point, at B with
-    PROFILE_ITERS chained calls a line; B7's launches counted."""
+    PROFILE_ITERS chained calls a line; B7's launches counted; then
+    ``factor_from_cov``'s check (not in the count)."""
     from xivo_tpu_torch.tools import profile_linalg
     res, wall, launches = counted(
         torch, chol.KERNELS,
@@ -1911,7 +1912,37 @@ def profile_phase(torch, chol):
     if launches["chol_blocked"] != expect:
         raise AssertionError(f"launches {launches}, expected chol_blocked "
                              f"{expect}")
+    check_factor_from_cov(torch, chol)
     return launches["chol_blocked"]
+
+
+def check_factor_from_cov(torch, chol):
+    """Phase 16's check of ``sqrt_form.factor_from_cov`` on phase 15's
+    input at full width (B x 228 x 228, planted dead rows): one launch of
+    B7 under the sync debug mode, held against its CPU plain run by B7's
+    row-relative limit, dead rows and the slack exactly 0."""
+    from xivo_tpu_torch.filter.layout import Dims
+    from xivo_tpu_torch.filter.sqrt_form import factor_from_cov
+    dims = Dims()
+    D = dims.full
+    P, dead = random_psd(torch, B, D, seed=70 + D)
+    S, wall, launches = counted(torch, chol.KERNELS,
+                                lambda: factor_from_cov(P, dims))
+    ref = factor_from_cov(P.cpu(), dims)
+    ref64 = factor_from_cov(P.cpu().double(), dims)
+    S = S.cpu()
+    e = row_rel_err(torch, S[..., :D], ref[..., :D])
+    e_plain = row_rel_err(torch, ref[..., :D].double(), ref64[..., :D])
+    use = e / min(ROW_TOL + ROW_TOL_SCALE * e_plain, ROW_TOL_CAP)
+    zeros = (zero_rows_kept(S[..., :D], dead)
+             and float(S[..., D:].abs().max()) == 0.0)
+    print(f"factor_from_cov: {B}x{D}x{D} -> {tuple(S.shape)} in {wall:.3f} "
+          f"s; launches {launches}; row-relative error against the CPU "
+          f"plain run {e:.3e}, worst error / limit {use:.3f}; dead rows and "
+          f"slack {'exactly 0' if zeros else 'LEAKED'}", flush=True)
+    if launches["chol_blocked"] != 1 or use > 1.0 or not zeros:
+        raise AssertionError("factor_from_cov: not one B7 launch, above "
+                             "B7's limit, or dead rows leaked")
 
 
 class OosRows:

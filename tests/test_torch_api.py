@@ -2,9 +2,10 @@
 and against the port's own batch runners, on the CPU in float64.
 
 Against the JAX ``Estimator``: ``tests/test_api.py::run_short``'s stream
-(the gentle IMU trajectory, 300 random points, 100 Hz IMU, 20 Hz frames,
-2 s) made once with the port's simulator and fed to both, at the tiny
-Dims of ``__graft_entry__._tiny_cfg``. Each run is module-scoped:
+(the gentle IMU trajectory, 300 random points, 100 Hz IMU, 20 Hz frames),
+its first RUN_T = 1 s (20 frames; features are in the state from frame 3)
+made once with the port's simulator and fed to both, at the tiny Dims of
+``__graft_entry__._tiny_cfg``. Each run is module-scoped:
 
 * ``default`` (here): ``config_from_json(PCW_CFG)``'s default filter
   (reference propagation, full covariance), depths from the simulation;
@@ -59,6 +60,7 @@ ENTRY_POINTS = {"InertialMeas", "VisualMeas", "VisualMeasTrackerOnly",
                 "Visualize"}
 ACCESSORS = [m for m in PYXIVO_METHODS if m not in ENTRY_POINTS]
 # run -> (config overrides, visual stamp offset, reversed groups)
+RUN_T = 1.0        # seconds of run_short's stream each pair is fed
 RUNS = {
     "default": ({}, 0.0, 0),
     "sqrt_td_reordered": (dict(SQRT, online_temporal_calib=True,
@@ -125,7 +127,7 @@ def run_pair(run):
     each recorded."""
     over, offset, groups = RUNS[run]
     jc, tc = cfgs(**over)
-    msgs = reversed_groups(messages(tc, offset=offset), groups)
+    msgs = reversed_groups(messages(tc, T=RUN_T, offset=offset), groups)
     ests, frames = [], []
     for est in (JaxEstimator(jc), Estimator(tc, device="cpu")):
         frames.append(record_frames(est))
@@ -161,7 +163,7 @@ def check_pair(pair):
     for name in ACCESSORS:
         assert_agree(name, getattr(jest, name)(), getattr(test, name)())
     assert test.num_misordered_dropped() == jest.num_misordered_dropped()
-    assert len(tframes) == len(jframes) > 30
+    assert len(tframes) == len(jframes) >= round(RUN_T * 20) - 1
     for i, ((jpose, jn), (tpose, tn)) in enumerate(zip(jframes, tframes)):
         assert tn == jn, (i, tn, jn)
         assert_agree(f"pose of frame {i}", jpose, tpose)

@@ -13,7 +13,7 @@ bit for bit.
 
 * ``mapped``: the point-cloud path with ``use_mapper`` (keyframes every 8
   frames, closures from frame ~27 on the "loop" trajectory) and
-  homography outlier rejection, 40 frames, against ``run_batch_mapped``;
+  homography outlier rejection, 30 frames, against ``run_batch_mapped``;
 * ``image`` and ``image_mapped``: ``IMG_CFG``'s rendered dots (320 x 240)
   with outlier rejection, 8 frames, against ``run_batch_image`` and
   ``run_batch_image_mapped``.
@@ -140,7 +140,7 @@ def test_mapped_estimator_matches_runner():
     tc = cfgs(**SQRT, **MAPPER, do_outlier_rejection=True)[1]
     est = Estimator(tc, device="cpu")
     got = capture(est)
-    feed(est, messages(tc, motion="loop", n_points=600))
+    feed(est, messages(tc, T=1.5, motion="loop", n_points=600))
     s, ms, outs, n_lc = run_batch_mapped(
         tc, got["start"], batch_maps(tc.map_capacity, 1, "cpu",
                                      torch.float64),

@@ -15,7 +15,8 @@ import torch
 
 from xivo_tpu_torch.api import Estimator
 
-from test_torch_api import RUNS, cfgs, check_pair, feed, messages, run_pair
+from test_torch_api import (RUN_T, RUNS, cfgs, check_pair, feed, messages,
+                            run_pair)
 
 torch.set_num_threads(2)
 RUN = "sqrt_td_reordered"
@@ -37,7 +38,7 @@ def test_matches_reference(pair):
     # delivery order does not change the result
     tc = cfgs(**over)[1]
     in_order = Estimator(tc, device="cpu")
-    feed(in_order, messages(tc, offset=offset))
+    feed(in_order, messages(tc, T=RUN_T, offset=offset))
     for name in ("gsb", "Vsb", "P", "InstateFeatureIDs"):
         a, b = getattr(in_order, name)(), getattr(est, name)()
         for x, y in zip(a if isinstance(a, tuple) else (a,),

@@ -15,8 +15,10 @@ reference's signature passes: the kernel has one panel width) against its
 plain version, under both of its names (``chol_lanes``, B1,
 and ``cholesky_batched``, B7: one kernel, each name counted on its own
 counter) at the filter's widths (228, 229, 60, the tiny Dims' 96) and
-batches of 1, 2 and 256; B1 at 229 on a rank-deficient bordered Gram (OOS
-measurement compression), held by its backward error within
+batches of 1, 2 and 256; ``sqrt_form.factor_from_cov`` at (256, 228,
+228) as one launch of B7 against its CPU plain run; B1 at 229 on a
+rank-deficient bordered Gram (OOS measurement compression), held by its
+backward error within
 ``chip_smoke``'s ``BACKWARD_TOL`` (see there why not row by row). A short run of the recommended accuracy config
 at full width under the sync debug mode, with its launches a frame. The
 reference's default filter (reference propagation, full covariance) at
@@ -245,6 +247,24 @@ def test_cholesky_psd_sends_any_batch_to_one_launch(cuda):
         assert chol.CHOL_BLOCKED.launches == n + 1
         assert L.shape == X.shape
         close(L, chol.cholesky_plain(X))
+
+
+def test_factor_from_cov_is_one_b7_launch(cuda):
+    """``sqrt_form.factor_from_cov`` at full width: one launch of B7,
+    within TOL of its CPU plain run, dead rows and the slack exactly 0."""
+    from xivo_tpu_torch.filter.layout import Dims
+    from xivo_tpu_torch.filter.sqrt_form import factor_from_cov
+    dims = Dims()
+    D, dead = dims.full, [0, 40, 227]
+    assert D == 228
+    P = psd_batch(256, D, dead, seed=16)
+    n = chol.CHOL_BLOCKED.launches
+    S = factor_from_cov(P, dims)
+    assert chol.CHOL_BLOCKED.launches == n + 1
+    assert S.shape == (256, D, D + 3 * dims.n_features)
+    close(S, factor_from_cov(P.cpu(), dims))
+    zero_rows_stay_zero(S[..., :D], dead)
+    assert float(S[..., D:].abs().max()) == 0.0
 
 
 def test_chol_blocked_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -1,10 +1,11 @@
 """The reference's default filter (dense covariance, Joseph updates) through
 the port's ``vio_frame`` against the JAX package, float64 on the CPU.
 
-Each case runs 20 frames of two sequences from one initial state, carried
-across with ``interop``, at the tiny Dims of ``__graft_entry__._tiny_cfg``
-(the churn world's for the accuracy config). The cases, one a file to keep
-each file short:
+Each case runs two sequences from one initial state, carried across with
+``interop``, at the tiny Dims of ``__graft_entry__._tiny_cfg`` (the churn
+world's for the accuracy config): 10 frames of the PCW world (features
+enter the state at frame 3) and 20 of the churn world (OOS first fires at
+frame 10). The cases, one a file to keep each file short:
 
 * ``pcw_default`` (here): ``config_from_json(PCW_CFG)`` with no filter
   override, so the reference's defaults: ``propagation_mode="reference"``
@@ -57,7 +58,7 @@ from test_torch_accuracy_pipeline import churn_world
 from test_torch_pipeline import TINY, _streams, _walk, plain
 
 torch.set_num_threads(2)
-FRAMES = 20
+FRAMES = {"pcw": 10, "churn": 20}     # frames a run, by world
 SEEDS = (1, 2)
 TOL = 1e-8
 COMPRESS = 0.5
@@ -87,7 +88,11 @@ def case_cfgs(case):
     assert plain(jc) == plain(tc)
     assert tc.covariance_form == over.get("covariance_form", "full")
     assert tc.propagation_mode == over.get("propagation_mode", "reference")
-    return jc, tc, ("churn" if case.startswith("accuracy") else "pcw")
+    return jc, tc, world_of(case)
+
+
+def world_of(case):
+    return "churn" if case.startswith("accuracy") else "pcw"
 
 
 @contextlib.contextmanager
@@ -108,9 +113,9 @@ def joseph_rows_applied():
 
 def streams(jc, tc, world):
     if world == "pcw":
-        return _streams(jc, tc, FRAMES, SEEDS)
+        return _streams(jc, tc, FRAMES[world], SEEDS)
     from test_torch_accuracy_pipeline import churn_streams
-    return churn_streams(jc, tc, FRAMES, SEEDS)
+    return churn_streams(jc, tc, FRAMES[world], SEEDS)
 
 
 def run_case(case):
@@ -138,9 +143,10 @@ def run_case(case):
 def check_frames(run):
     """StepOutputs frame by frame: floats within TOL, counts exactly."""
     name, tc, (_, jo), (_, to), rows = run
+    T = FRAMES[world_of(name)]
     for field in jo._fields:
         a, b = np.asarray(getattr(jo, field)), getattr(to, field).numpy()
-        assert a.shape == b.shape == (len(SEEDS), FRAMES) + a.shape[2:]
+        assert a.shape == b.shape == (len(SEEDS), T) + a.shape[2:]
         if np.issubdtype(a.dtype, np.integer):
             np.testing.assert_array_equal(b, a, err_msg=f"{name} {field}")
         else:
@@ -151,7 +157,7 @@ def check_frames(run):
     assert int(np.asarray(jo.num_instate_groups)[:, -1].min()) > 0
     if tc.use_OOS:
         # compression ran on every frame, and OOS rows reached the update
-        assert rows.shape == (FRAMES, len(SEEDS))
+        assert rows.shape == (T, len(SEEDS))
         assert ((rows > 0).sum(axis=0) >= 4).all(), rows
 
 

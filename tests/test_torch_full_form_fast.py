@@ -1,5 +1,5 @@
 """Fast propagation through the port's ``vio_frame`` against the JAX
-package, float64 on the CPU: 20 frames of the tiny PCW config in the full
+package, float64 on the CPU: 10 frames of the tiny PCW config in the full
 form (``pcw_fast_full``: the dense-P branch of the frame propagation) and
 with ``fast_substeps=0`` in the square-root form (``pcw_fast_loop``: the
 capped fixed-step loop and the skipped per-frame projection; ROADMAP C.1,

@@ -233,6 +233,9 @@ def test_port_imports_no_jax():
         "import xivo_tpu_torch.tools.chol_breakdown\n"
         "import xivo_tpu_torch.tools.hamming_breakdown\n"
         "import xivo_tpu_torch.tools.lk_breakdown\n"
+        "from xivo_tpu_torch.filter.sqrt_form import (is_sqrt,\n"
+        "    factor_from_cov, noise_rows, noise_factor, factor_propagate)\n"
+        "from xivo_tpu_torch.filter.features import subfilter_update\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'xivo_tpu'\n"
         "       or m.startswith('xivo_tpu.')]\n"

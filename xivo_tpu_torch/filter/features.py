@@ -160,12 +160,13 @@ def _inv2(S):
     return adj / det[..., None, None]
 
 
-def subfilter_update_table(cam_kind: int, intrin, X, Rsbr, Tsbr, x, Psub,
-                           xp_meas, Rtri: float, MH_thresh: float):
-    """Per-feature 3-dim depth subfilter EKF step over the whole table
+def subfilter_update(cam_kind: int, intrin, X, Rsbr, Tsbr, x, Psub, xp_meas,
+                     Rtri: float, MH_thresh: float):
+    """One feature's 3-dim depth subfilter EKF step
     (Feature::SubfilterUpdate, src/feature.cpp:246-297): predicted
-    reprojection, MH-ratio R inflation, Joseph-form update.
-    Returns (x', Psub', outlier_inc, bad)."""
+    reprojection, MH-ratio R inflation, Joseph-form update. Leading
+    dimensions broadcast, so the same function steps the whole table
+    (``subfilter_update_table``). Returns (x', Psub', outlier_inc, bad)."""
     Xc, dXc_dx = unproject_logz(x)
     Rcs = (X.Rsb @ X.Rbc).transpose(-1, -2)
     Tcs = -mv(Rcs, mv(X.Rsb, X.Tbc) + X.Tsb)
@@ -192,6 +193,11 @@ def subfilter_update_table(cam_kind: int, intrin, X, Rsbr, Tsbr, x, Psub,
     P_new = I_KH @ Psub @ I_KH.transpose(-1, -2) \
         + Rtri * (K @ K.transpose(-1, -2))
     return x_new, P_new, outlier_inc, bad
+
+
+# the reference's table form is the plane-algebra rewrite of the same step
+# for the TPU; here it is the same function over (B, N) leading dimensions
+subfilter_update_table = subfilter_update
 
 
 def _dot(a, b):

@@ -27,7 +27,7 @@ from .propagate import (imu_sample_update, oc_correct_phi,
                         propagate_interval_fast_static, propagate_state,
                         qmodel_diag, with_motion_block)
 from .sqrt_form import (chol3x3, cov_diag, factor_propagate_absorb,
-                        feature_band)
+                        feature_band, is_sqrt)
 from .state import (FS_CREATED, FS_EMPTY, FS_GAUGE, FS_INITIALIZING,
                     FS_INSTATE, FS_READY, TS_CREATED, TS_DROPPED, TS_NONE,
                     TS_TRACKED, FeatureTable, VIOState, check_supported,
@@ -1081,7 +1081,7 @@ def _propagate_frame_fast(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
 
     Qd = Q + nprop.to(dtype)[:, None, None] \
         * torch.diag(qmodel_diag(cfg, dtype, s.P.device))
-    if cfg.covariance_form == "sqrt":
+    if is_sqrt(cfg):
         P = factor_propagate_absorb(cfg, s.P, Phi, Qd)
     else:
         Pmm = Phi @ s.P[:, :m, :m] @ Phi.transpose(-1, -2) + Qd

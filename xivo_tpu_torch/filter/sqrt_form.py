@@ -9,12 +9,18 @@ transition and re-compresses the factor by ONE Gram + masked Cholesky
 built on the fused Cholesky+inverse (``chol_inv_lanes``) and a triangular
 inverse (``tri_inv_lanes``). Every matmul here is a true float32 (or
 float64) product: the port never enables TF32.
+
+``factor_from_cov`` (a factor from a dense covariance, kernel
+``chol_blocked``), ``noise_factor`` and ``factor_propagate`` (the
+round-2 flow that wrote a factored process noise into slack columns) are
+off the filter's path; the reference keeps them for its unit tests.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops import lanes_chol
+from ..ops import chol, lanes_chol
+from ..ops.dense import constant
 from . import layout as L
 
 # stacks wider than this are processed as sequential block downdates
@@ -31,6 +37,10 @@ def factor_cols(dims) -> int:
     return dims.full + slack_cols(dims)
 
 
+def is_sqrt(cfg) -> bool:
+    return cfg.covariance_form == "sqrt"
+
+
 def feature_band(dims, slot_index):
     """Slack-column band owned by a feature slot (static offsets)."""
     return dims.full + 3 * slot_index
@@ -41,6 +51,21 @@ def cov_full(P):
     if P.shape[-1] == P.shape[-2]:
         return P
     return P @ P.transpose(-1, -2)
+
+
+def factor_from_cov(P_full, dims):
+    """Masked Cholesky of a dense (D, D) or (..., D, D) covariance ->
+    factor padded with the slack columns. Rows/cols whose diagonal is not
+    above 0 (frozen calibration states, empty slots, gauge-fixed entries)
+    get a unit diagonal for the factorization and are zeroed after, so
+    they stay exactly zero. The whole batch is one launch of B7."""
+    D = P_full.shape[-1]
+    keep = torch.diagonal(P_full, dim1=-2, dim2=-1) > 0
+    eye = torch.eye(D, dtype=P_full.dtype, device=P_full.device)
+    Pm = torch.where(keep[..., :, None] & keep[..., None, :], P_full, eye)
+    S = chol.cholesky_psd(Pm)
+    S = torch.where(keep[..., :, None], S, 0.0)
+    return torch.nn.functional.pad(S, (0, slack_cols(dims)))
 
 
 def factor_zero_rows(S, keep):
@@ -136,6 +161,52 @@ def chol3x3(P3):
     tr = torch.diagonal(P3, dim1=-2, dim2=-1).sum(-1)[..., None, None] / 3.0
     eye = torch.eye(3, dtype=P3.dtype, device=P3.device)
     return chol_unrolled(P3 + (rel * tr + 1e-30) * eye, 1e-30)
+
+
+def noise_rows(cfg) -> tuple:
+    """Static motion-error rows that can carry process noise: the
+    IMU-noise image {Wsb, Tsb, Vsb, bg, ba} plus the Qmodel-enabled
+    blocks. Every other row of Qd is exactly zero (frozen calibration
+    states keep zero covariance)."""
+    rows = (list(range(L.WSB, L.WSB + 3)) + list(range(L.TSB, L.TSB + 3))
+            + list(range(L.VSB, L.VSB + 3)) + list(range(L.BG, L.BG + 3))
+            + list(range(L.BA, L.BA + 3)))
+    if cfg.Qmodel_Wbc > 0:
+        rows += list(range(L.WBC, L.WBC + 3))
+    if cfg.Qmodel_Wsg > 0:
+        rows += list(range(L.WSG, L.WSG + 2))
+    return tuple(sorted(rows))
+
+
+def noise_factor(cfg, Qd):
+    """(..., MOTION, MOTION) factor of the accumulated process noise: the
+    Cholesky of the noise rows' block with a relative jitter, embedded at
+    those rows, so noise-free rows stay exactly zero. Reads nothing back
+    to the host."""
+    dtype, dev = Qd.dtype, Qd.device
+    rows = noise_rows(cfg)
+    k = len(rows)
+    idx = constant(rows, torch.int64, dev)
+    sub = Qd[..., idx[:, None], idx]
+    rel = 1e-12 if dtype == torch.float64 else 1e-6
+    eps = rel * torch.diagonal(sub, dim1=-2, dim2=-1).sum(-1) / k + 1e-30
+    eye = torch.eye(k, dtype=dtype, device=dev)
+    Ls = chol_unrolled(sub + eps[..., None, None] * eye, eps * 0.5)
+    Lq = Qd.new_zeros(Qd.shape[:-2] + (L.MOTION, L.MOTION))
+    Lq[..., idx[:, None], idx] = Ls
+    return Lq
+
+
+def factor_propagate(cfg, S, Phi, Qd):
+    """The round-2 propagation (the filter runs factor_propagate_absorb):
+    S[:m] <- Phi S[:m], then the noise factor written into columns
+    [D, D + MOTION), which the caller keeps zero and re-compresses
+    later."""
+    m = L.MOTION
+    D = cfg.dims.full
+    S = torch.cat([Phi @ S[..., :m, :], S[..., m:, :]], dim=-2)
+    S[..., :m, D:D + m] = noise_factor(cfg, Qd)
+    return S
 
 
 def factor_recompress(S, D: int, Qd=None):
