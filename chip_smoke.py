@@ -48,16 +48,8 @@ image path (slice 2):
    (``tests/test_image_vio.py``: final error below 5 m, median below 3 m,
    at least 20 tracks from frame 10 on), 4 launches of B4 and B5 per
    frame and one of B1-B3;
-9. where the time goes, for the three main paths: ``torch.profiler``
-   (the device's activity alone) over four frame steps (frames 30-33;
-   the mapped path's 131-134) gives the device's busy share and its time by
-   kernel (summed from the profiler's raw device events), and the same
-   frames
-   run once more with a synchronize around each stage of the frame step
-   give each stage's time (the image tracker's stages, from
-   ``build_pyramid`` to BRIEF's ``extract``, are inside
-   ``tracker_image``; the mapped step's ``retire_features`` counts both
-   of its calls, and ``_keyframe_insert`` includes the second);
+9. (no phase: where the time goes is the benchmark's, ``portbench/``,
+   read from the program's own spans, ``xivo_tpu_torch/tracing.py``);
 mapped path (slice 3):
 10. hold the Hamming nearest-neighbour kernel (B6) against its plain
    version, exactly, on the queries, map tables and query-row masks of the
@@ -82,7 +74,7 @@ mapped path (slice 3):
    float32 and 1e-9 m in float64;
 12. run the mapped PCW path: B = 64 sequences of the first MAP_FRAMES
    (200) frames of the 20 s "loop" stream in two calls (frames 0-129,
-   where phase 9's state and phase 10's inputs are taken, and the rest),
+   where phase 10's inputs and phase 34's state are taken, and the rest),
    20000-entry maps,
    ``scripts/diag_kidnap_pcw.py``'s mapper settings without the kick,
    counters at 0 and the sync debug mode on;
@@ -131,13 +123,12 @@ Joseph updates; phases 20-22 run right after phase 19):
    overridden (float32, default Dims) against its CPU path on B = 2 for
    FULL_CMP_FRAMES frames: poses within 1e-3 m, counts equal;
 21. run it at full width: B = 256 sequences of the 5 s stream's first
-   FULL_FRAMES (40) frames, in two calls (frames 0-29, where phase 9's
-   window starts, and the rest),
-   the depths initialized from the simulation as the reference's bound
-   test does (``tests/test_e2e_pcw.py:34-44``), the substep cap sized to
+   FULL_FRAMES (40) frames, the depths initialized from the simulation as
+   the reference's bound test does (``tests/test_e2e_pcw.py:34-44``), the
+   substep cap sized to
    the stream (``runner.fit_substeps``), counters at 0 and the sync debug
    mode on; require finite poses, ATE-RMSE of sequence 0 below 0.10 m, no
-   interval left unfinished by the cap (read after each call) and no
+   interval left unfinished by the cap (read after the run) and no
    launch of B1-B3 or B7; print the throughput, peak memory and the most
    substeps an interval took;
 22. the accuracy config in the full form with compression forced
@@ -282,14 +273,6 @@ taken down at the end; each path counted under the sync debug mode):
    runner against the default (``run_batch``), each runner's frame loop
    under the sync check: fused trajectory and outputs equal, launches
    equal.
-Phase 9 also profiles two frames of phase 21's path (frames 30-31, from
-the main run's state at frame 30), with
-the IMU-sample updates and the Joseph updates among its stages, and times
-two frames of phase 24's (frames 30-31, likewise) with a synchronize
-around each
-stage, among them ``unproject``'s Newton steps and the homography RANSAC
-(with each one's launches a call, and a whole frame step's).
-
 Each kernel's entry in the JSON line carries its launches on every
 path (B7's ``launches`` are the profile's; 0 on the filter paths). The
 last lines are the kernels' JSON line, the card line, and
@@ -354,14 +337,9 @@ GN_FLAG_SHARE = 0.995
 GN_UNCONV_TOL = 0.1
 IMG_PATH_TOL = 1e-3     # CUDA vs CPU image path, m
 IMG_CMP_FRAMES, IMG_CMP_OPEN_FRAMES = 10, 20
-PROFILE_FRAMES = (30, 34)   # the window that phase 9 profiles
+TUMVI_SPLIT_FRAME = 30  # phase 24's two calls: frames before it, the rest
 
 DEV = "cuda"            # the card every phase runs on
-# the kernels of csrc/*.cu, as the profiler names them (a template's
-# name is followed by its arguments, <...>)
-OWN_KERNELS = ("chol_blocked_kernel", "chol_inv_blocked_kernel",
-               "tri_inv_blocked_kernel",
-               "templates_kernel", "gn_kernel", "hamming_nn_kernel")
 REPLACES = {"chol_lanes": "xivo_tpu/ops/lanes_chol.py:103",
             "chol_blocked": "xivo_tpu/ops/chol_pallas.py:37",
             "chol_inv_lanes": "xivo_tpu/ops/lanes_chol.py:108",
@@ -376,7 +354,6 @@ MAP_FRAMES = 200        # the main run: its first 200 frames
 MAP_ATE_BOUND = 0.15    # tests/test_mapped_vio.py:42
 MAP_MIN_CLOSURES = 100  # tests/test_headline_micro.py:50
 MAP_CAPTURE_FRAME = 130
-MAP_PROFILE_FRAMES = (MAP_CAPTURE_FRAME + 1, MAP_CAPTURE_FRAME + 5)
 MAP_CMP_FRAMES, MAP_CMP_CAPACITY, MAP_CMP_AGE = 60, 2048, 20
 MAP_PATH_TOL, MAP_CLOSURE_SHARE = 1e-3, 0.02
 MAP_POSE_EPS = 1e-5     # poses this far apart count as parted (report)
@@ -412,7 +389,7 @@ ACC_ATE_FACTOR, ACC_ATE_FLOOR = 1.25, 0.015
 # simulation, as the reference's bound test runs the config
 # (tests/test_e2e_pcw.py:34-44); the accuracy config in the full form with
 # compression forced for FULL_COMPRESS_FRAMES frames
-FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES, FULL_PROFILE_FRAMES = 10, 20, 2
+FULL_CMP_FRAMES, FULL_COMPRESS_FRAMES = 10, 20
 FULL_FRAMES = 40        # the main run: the bench stream's first 40 frames
 FULL_PATH_TOL = 1e-3
 COUNT_FIELDS = ("num_instate_features", "num_instate_groups", "num_tracked",
@@ -1213,154 +1190,6 @@ def image_phases(torch, lc, lko, others):
     return kernels, launches
 
 
-class Timed:
-    """Replace module functions by wrappers that synchronize the card
-    before and after each call and add its wall time to a total by stage,
-    while the `with` block runs."""
-
-    def __init__(self, torch, patches):
-        self.torch, self.patches = torch, patches   # [(module, name)]
-        self.total = {name: 0.0 for _, name in patches}
-
-    def __enter__(self):
-        self.orig = [(m, n, getattr(m, n)) for m, n in self.patches]
-        for m, n, fn in self.orig:
-            setattr(m, n, self._wrap(n, fn))
-        return self.total
-
-    def _wrap(self, name, fn):
-        def timed(*args, **kw):
-            self.torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            self.torch.cuda.synchronize()
-            self.total[name] += time.perf_counter() - t0
-            return out
-        return timed
-
-    def __exit__(self, *exc):
-        for m, n, fn in self.orig:
-            setattr(m, n, fn)
-
-
-def device_events(prof):
-    """{kernel or copy name: (device time in us, count)} of a finished
-    ``torch.profiler.profile``, summed from its raw device events.
-    ``key_averages()`` gives the same sums, but first builds the whole
-    event tree: 11-33 s a path of phase 9 on the H100."""
-    out = {}
-    for e in prof.profiler.kineto_results.events():
-        if "CUDA" not in str(e.device_type()):
-            continue
-        t, c = out.get(e.name(), (0.0, 0))
-        out[e.name()] = (t + e.duration_ns() / 1e3, c + 1)
-    return {k: v for k, v in out.items() if v[0] > 0}
-
-
-def where_time_goes(torch, label, run, stages, n_frames):
-    """Phase 9 for one main path: `run()` runs the profiled window of
-    `n_frames` frame steps; `stages` are the (module, function) pairs of
-    the frame step to time one by one."""
-    from torch.profiler import ProfilerActivity, profile
-    run()                                  # warm: same shapes, same code
-    torch.cuda.synchronize()
-    # the device's activity only: tracing the host's operators too slowed
-    # the profiled step ~1.5 x and its table read ~4 x, with the same
-    # device times and launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    by_kernel = {name: (t / 1e3 / n_frames, c // n_frames)
-                 for name, (t, c) in device_events(prof).items()}
-    print(f"{label} time: the profiler's table read in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    busy = sum(t for t, _ in by_kernel.values())
-    step = wall / n_frames * 1e3
-    if busy > 0:
-        print(f"{label} time: frame step {step:.2f} ms (wall over "
-              f"{n_frames} steps, profiled), device busy {busy:.2f} ms a "
-              f"step ({100 * busy / step:.1f} %), idle "
-              f"{100 * (1 - busy / step):.1f} %; "
-              f"{sum(c for _, c in by_kernel.values())} kernel launches a "
-              f"step", flush=True)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-        own = [kv for kv in top
-               if any(f"::{k}{c}" in kv[0] for k in OWN_KERNELS
-                      for c in "(<")]
-        for name, (t, c) in top[:12] + [kv for kv in own
-                                         if kv not in top[:12]]:
-            print(f"{label} time:   {t:8.4f} ms a step, {c:4d} launches: "
-                  f"{name[:90]}", flush=True)
-    else:
-        print(f"{label} time: frame step {step:.2f} ms; the profiler saw no "
-              f"device time (busy share not measured)", flush=True)
-    with Timed(torch, stages) as total:
-        run()
-    print(f"{label} time, each stage synchronized: " + ", ".join(
-        f"{n} {t / n_frames * 1e3:.2f} ms" for n, t in total.items())
-        + " a step", flush=True)
-
-
-def breakdown_phase(torch, pcw_cfg, mapped, full):
-    """Phase 9: where the frame step's time goes, on the three main paths
-    and the default filter's; `mapped` and `full` (phase 21's run) are
-    (config, states (and maps) before the window, window)."""
-    from xivo_tpu_torch.filter import pipeline, update
-    from xivo_tpu_torch.frontend import brief, tracker
-    from xivo_tpu_torch.runner import run_batch, run_batch_image
-    from xivo_tpu_torch.sim.image_stream import build_image_stream
-    a, b = PROFILE_FRAMES
-    n = b - a
-
-    s, fib, _ = make_run(pcw_cfg, torch, DEV, B, frames=b)
-    s, _ = run_batch(pcw_cfg, s, type(fib)(*(x[:, :a] for x in fib)))
-    win = type(fib)(*(x[:, a:b] for x in fib))
-    where_time_goes(torch, f"pcw B={B}", lambda: run_batch(pcw_cfg, s, win),
-                    [(pipeline, "propagate_frame"),
-                     (pipeline, "tracker_pointcloud"),
-                     (pipeline, "update_step")], n)
-
-    # the default filter's window is FULL_PROFILE_FRAMES long: it makes
-    # ~37,600 launches a step
-    full_cfg, s, win = moved(torch, full, DEV)
-    where_time_goes(torch, f"default filter B={B}",
-                    lambda: run_batch(full_cfg, s, win),
-                    [(pipeline, "propagate_frame"),
-                     (pipeline, "imu_sample_update"),
-                     (pipeline, "tracker_pointcloud"),
-                     (pipeline, "update_step"), (update, "joseph_rows")],
-                    FULL_PROFILE_FRAMES)
-    del s, win
-
-    cfg = image_config()
-    stream = build_image_stream(cfg)
-    s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream, frames=b)
-    s, f, _ = run_batch_image(cfg, s, f, type(fib)(*(x[:, :a] for x in fib)))
-    win = type(fib)(*(x[:, a:b] for x in fib))
-    where_time_goes(
-        torch, f"image B={IMG_B}",
-        lambda: run_batch_image(cfg, s, f, win),
-        [(tracker, "propagate_frame"), (tracker, "tracker_image"),
-         (tracker, "build_pyramid"), (tracker, "track"),
-         (tracker, "fast_score"), (tracker, "select_topk"),
-         (brief, "extract"), (tracker, "update_step")], n)
-
-    from xivo_tpu_torch.map import integration
-    from xivo_tpu_torch.runner import run_batch_mapped
-    mcfg, (s, ms), win = mapped
-    n = win.frame_dt.shape[1]
-    where_time_goes(
-        torch, f"mapped B={MAP_B}",
-        lambda: run_batch_mapped(mcfg, s, ms, win),
-        [(integration, "propagate_frame"),
-         (integration, "tracker_pointcloud"),
-         (integration, "retire_features"), (integration, "update_step"),
-         (integration, "_keyframe_insert"), (integration, "close_loop")], n)
-
-
 # ---------------------------------------------------------------------------
 # the mapped path (map, loop closure, bundle adjustment) and B6
 # ---------------------------------------------------------------------------
@@ -1402,9 +1231,9 @@ def window(fib, lo, hi):
 
 
 def moved(torch, tree, device):
-    """A (nested) tuple of tensors moved to `device`: phase 9's states
-    wait on the host, so that they add nothing to the peak memory that
-    the phases between read."""
+    """A (nested) tuple of tensors moved to `device`: what later phases
+    take waits on the host, so that it adds nothing to the peak memory
+    that the phases between read."""
     from xivo_tpu_torch.filter.state import tree_map
     return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor)
                     else x, tree)
@@ -1414,7 +1243,8 @@ def counted_split(torch, kernels, run, carry, fib, a, seeds,
                   after=lambda: None):
     """`counted` over every frame of `fib` in two calls, frames [0, a) and
     then the rest, so that the main run makes on its way the state at
-    frame a that phase 9 profiles from. run(carry, inputs, seed) returns
+    frame a (phase 12's: phases 10 and 34 start there). run(carry,
+    inputs, seed) returns
     the new carry followed by the frames' outputs (B, T, ...); `after()`
     runs after each call, outside the sync check. Returns (the carry at
     frame a, the final carry and outputs joined along the frame axis, the
@@ -1692,8 +1522,9 @@ def compare_mapped_paths(torch, cfg, stream):
 
 def mapped_phases(torch, lc, hm, others):
     """Phases 10-12: returns (the B6 JSON entry, launches on the mapped
-    main path, the state and maps before the profiled window, inputs, and
-    the frame's recorded B6 inputs (q, desc, valid) on the host)."""
+    main path, the config, the state and maps at frame MAP_CAPTURE_FRAME
+    + 1, and that frame's recorded B6 inputs (q, desc, valid) on the
+    host)."""
     from xivo_tpu_torch.runner import run_batch_mapped
     cfg = mapped_config()
     stream = mapped_stream(cfg)
@@ -1707,16 +1538,17 @@ def mapped_phases(torch, lc, hm, others):
     s, ms, fib, gt = make_mapped_run(cfg, torch, DEV, MAP_B, stream,
                                      frames=MAP_FRAMES)
     T = int(fib.frame_dt.shape[1])
-    a, (p, q) = MAP_CAPTURE_FRAME, MAP_PROFILE_FRAMES
+    a = MAP_CAPTURE_FRAME
     (st, m), (s, ms, outs, lcs), wall, launches, peak, _ = counted_split(
         torch, lc.KERNELS + hm.KERNELS + others,
         lambda c, w, seed: run_batch_mapped(cfg, *c, w, seed=seed),
         (s, ms), fib, a, (0, 1))
     # from the main run's state at frame 130: that frame's three
-    # searches' inputs, kept for phase 10, and the state after it, where
-    # phase 9's window starts
+    # searches' inputs, kept for phase 10, and the state after it, which
+    # phase 34 starts from
     with Recorder(torch, hm, ["hamming_nn"]) as seen:
-        before = run_batch_mapped(cfg, st, m, window(fib, a, p), seed=2)[:2]
+        after = run_batch_mapped(cfg, st, m, window(fib, a, a + 1),
+                                 seed=2)[:2]
     del st, m
     torch.cuda.synchronize()
     Tsb = outs.Tsb.cpu().numpy()
@@ -1757,7 +1589,7 @@ def mapped_phases(torch, lc, hm, others):
     entry["launches"] = launches["hamming_nn"]
     searches = [moved(torch, tuple(a[:3]), "cpu")
                 for a in seen["hamming_nn"]]
-    return entry, launches, cfg, before, window(fib, p, q), searches
+    return entry, launches, cfg, after, searches
 
 
 def synthetic_bigmap(torch, cfg, n_lm=4096, n_kf=256, obs=4, noise=0.05,
@@ -2110,9 +1942,7 @@ def default_config(**over):
 def full_form_phases(torch, lc, chol):
     """Phases 20-22: the reference's default filter. Returns the main
     run's launches, the full-form accuracy run's launches with compression
-    forced, B1's check at 229 on that run's inputs and, for phase 9, the
-    main run's config, its states at frame PROFILE_FRAMES[0] and the
-    FULL_PROFILE_FRAMES frames from there."""
+    forced and B1's check at 229 on that run's inputs."""
     from xivo_tpu_torch.filter import oos, propagate
     from xivo_tpu_torch.runner import run_batch
     from xivo_tpu_torch.sim.configs import accuracy_config
@@ -2146,12 +1976,13 @@ def full_form_phases(torch, lc, chol):
     # phase 21: the main run at full width, counted
     cfg = default_config(sim_initialize_depths=True)
     s, fib, gt = make_run(cfg, torch, DEV, B, frames=FULL_FRAMES)
-    T, a = int(fib.frame_dt.shape[1]), PROFILE_FRAMES[0]
-    # the substep counters read after each call (raises on an unfinished
+    T = int(fib.frame_dt.shape[1])
+    (s, outs), wall, launches = counted(
+        torch, kernels, lambda: run_batch(cfg, s, fib, check=False))
+    peak = torch.cuda.max_memory_allocated()
+    # the substep counters read after the run (raises on an unfinished
     # interval)
-    (s_a,), (s, outs), wall, launches, peak, most = counted_split(
-        torch, kernels, lambda c, w, _: run_batch(cfg, *c, w, check=False),
-        (s,), fib, a, (0, 0), after=lambda: propagate.check_substeps(DEV))
+    most = propagate.check_substeps(DEV)
     Tsb = outs.Tsb.cpu().numpy()
     if not np.isfinite(Tsb).all() or not torch.isfinite(outs.Rsb).all():
         raise AssertionError("non-finite poses")
@@ -2160,10 +1991,10 @@ def full_form_phases(torch, lc, chol):
     print(f"default filter main path: B={B} T={T} D={cfg.dims.full} "
           f"(reference Prince-Dormand propagation, stepsize "
           f"{cfg.stepsize}, max_substeps {cfg.max_substeps}; full "
-          f"covariance; frames 0-{a - 1} and {a}-{T - 1} as two calls) "
+          f"covariance) "
           f"wall {wall:.3f} s sequence-frames/s "
           f"{B * T / wall:.1f} peak_mem_GB {peak / 1e9:.2f} launches "
-          f"{launches}; the most substeps an interval took {max(most)}, "
+          f"{launches}; the most substeps an interval took {most}, "
           f"intervals left unfinished 0", flush=True)
     print(f"default filter main path, sequence 0: ATE-RMSE {ates[0]:.5f} m "
           f"(bound {ATE_BOUND}), final error {err[0, -1]:.5f} m; in-state "
@@ -2174,9 +2005,6 @@ def full_form_phases(torch, lc, chol):
         raise AssertionError(f"ATE {ates[0]} >= {ATE_BOUND}")
     if any(launches.values()):
         raise AssertionError(f"launches {launches}, expected none")
-    profiled = moved(torch, (cfg, s_a, window(
-        fib, a, a + FULL_PROFILE_FRAMES)), "cpu")
-    del s_a
 
     # phase 22: the accuracy config in the full form, compression forced
     ccfg = accuracy_config(covariance_form="full",
@@ -2203,7 +2031,7 @@ def full_form_phases(torch, lc, chol):
     del seen
     check = check_oos_shape(torch, "chol_lanes", lc.chol_lanes,
                             lc.chol_plain, inputs, backward=True)
-    return launches, claunches, check, profiled
+    return launches, claunches, check
 
 
 # ---------------------------------------------------------------------------
@@ -2297,10 +2125,8 @@ def compare_image_devices(torch, label, cfg, stream, frames, oos=None,
 
 def tumvi_phases(torch, lc, lko, others):
     """Phases 23-24: ``cfg/tumvi_cam0.json`` on the CUDA and CPU paths, then
-    at full width, counted. Returns the B4-B5 checks at the config's shapes,
-    the main run's launches, and, for the stage times, the config, the
-    main run's states at frame PROFILE_FRAMES[0] (on the host) and the
-    stream."""
+    at full width, counted. Returns the B4-B5 checks at the config's shapes
+    and the main run's launches."""
     from xivo_tpu_torch.filter import propagate
     from xivo_tpu_torch.runner import run_batch_image
     cfg, stream = tumvi_config()
@@ -2331,11 +2157,12 @@ def tumvi_phases(torch, lc, lko, others):
                           stream, TUMVI_CMP_OPEN_FRAMES, warm=False)
 
     # phase 24: the main run, counted; the substep counters read after
-    # each of its two calls (raises on an unfinished interval)
+    # each of its two calls (raises on an unfinished interval); the calls
+    # draw their homography uniforms from seeds 1 and 2
     s, f, fib = make_image_run(cfg, torch, DEV, IMG_B, stream,
                                frames=TUMVI_FRAMES)
-    T, a = int(fib.frame_dt.shape[1]), PROFILE_FRAMES[0]
-    at_a, (s, f, outs), wall, launches, peak, most = counted_split(
+    T, a = int(fib.frame_dt.shape[1]), TUMVI_SPLIT_FRAME
+    _, (s, f, outs), wall, launches, peak, most = counted_split(
         torch, kernels, lambda c, w, seed: run_batch_image(
             cfg, *c, w, check=False, seed=seed),
         (s, f), fib, a, (1, 2), after=lambda: propagate.check_substeps(DEV))
@@ -2385,8 +2212,7 @@ def tumvi_phases(torch, lc, lko, others):
     checks = check_lk_kernels(torch, lko, seen, {"sample_templates": [],
                                                  "gn_tracks": []}, cfg)
     del seen
-    return {c["name"]: c for c in checks}, launches, (
-        cfg, moved(torch, at_a, "cpu"), stream)
+    return {c["name"]: c for c in checks}, launches
 
 
 def equidistant_bench_phase(torch, kernels):
@@ -2446,65 +2272,6 @@ def tumvi_accuracy_phase(torch, lko, kernels):
     return launches
 
 
-def launches_per_call(torch, fn):
-    """Kernel launches (and copies) that one call of fn makes on the card,
-    from the profiler's device events."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(c for _, c in device_events(prof).values())
-
-
-def tumvi_stage_times(torch, tumvi):
-    """Phase 9 for the TUM-VI path (phase 24's config, frames 30-34):
-    each stage's time with a synchronize around it, ``unproject`` and the
-    homography rejection among them, and their launches a call."""
-    from xivo_tpu_torch.cam import models as cam_models
-    from xivo_tpu_torch.frontend import tracker
-    from xivo_tpu_torch.runner import run_batch_image
-    cfg, at_a, stream = tumvi
-    s, f = moved(torch, at_a, DEV)
-    a = PROFILE_FRAMES[0]
-    win = window(make_image_run(cfg, torch, DEV, IMG_B, stream,
-                                frames=a + FULL_PROFILE_FRAMES)[2], a, None)
-    n = win.frame_dt.shape[1]
-
-    def run():
-        return run_batch_image(cfg, s, f, win)
-    torch.cuda.synchronize()        # the config ran in phase 24: warm
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    step = (time.perf_counter() - t0) / n * 1e3
-    with Recorder(torch, cam_models, ["unproject"]) as up, \
-            Recorder(torch, tracker, ["reject_outliers"]) as ro:
-        run_batch_image(cfg, s, f, type(win)(*(x[:, :1] for x in win)))
-    calls = {}
-    for name, mod, seen in (("unproject", cam_models, up),
-                            ("reject_outliers", tracker, ro)):
-        args = seen[name]
-        calls[name] = (len(args), launches_per_call(
-            torch, lambda: getattr(mod, name)(*args[0])) if args else 0)
-    one = type(win)(*(x[:, :1] for x in win))
-    calls["the frame step"] = (1, launches_per_call(
-        torch, lambda: run_batch_image(cfg, s, f, one)))
-    with Timed(torch, [(tracker, "propagate_frame"),
-                       (tracker, "tracker_image"), (tracker, "track"),
-                       (tracker, "reject_outliers"),
-                       (cam_models, "unproject"),
-                       (tracker, "update_step")]) as total:
-        run()
-    print(f"tumvi B={IMG_B} time: frame step {step:.2f} ms (wall over {n} "
-          f"steps); each stage synchronized: " + ", ".join(
-              f"{k} {t / n * 1e3:.2f} ms" for k, t in total.items())
-          + " a step; " + ", ".join(
-              f"{k} {c} call(s) a frame, {l} launches a call"
-              for k, (c, l) in calls.items()), flush=True)
-
-
 def backward_use(torch, kernel, plain, inputs):
     """Worst ratio of the kernel's backward error to its limit over the
     inputs, and the plain float32 version's own worst (see BACKWARD_TOL)."""
@@ -2557,15 +2324,14 @@ def check_oos_shape(torch, name, kernel, plain, inputs, backward=False):
 
 
 def slice11_phases(torch, lc, lko, hm, chol):
-    """Phases 23-26. Returns B4-B5's checks at the TUM-VI shapes, the
-    launches of phases 24, 26 and 25, and phase 24's window
-    for the stage times."""
+    """Phases 23-26. Returns B4-B5's checks at the TUM-VI shapes and the
+    launches of phases 24, 26 and 25."""
     others = hm.KERNELS + chol.KERNELS
     kernels = lc.KERNELS + lko.KERNELS + others
-    checks, launches, tumvi = tumvi_phases(torch, lc, lko, others)
+    checks, launches = tumvi_phases(torch, lc, lko, others)
     equi = equidistant_bench_phase(torch, kernels)
     acc = tumvi_accuracy_phase(torch, lko, kernels)
-    return checks, launches, acc, equi, tumvi
+    return checks, launches, acc, equi
 
 
 API_T = 2.0             # tests/test_api.py::run_short: 2 s of stream
@@ -3369,27 +3135,23 @@ def main():
     stamp("pcw phases", t_start)
     acc_launches, oos_shapes = accuracy_phases(torch, lc, chol, base_ate)
     stamp("accuracy phases", t_start)
-    full_launches, full_acc_launches, full_b1, full = full_form_phases(
+    full_launches, full_acc_launches, full_b1 = full_form_phases(
         torch, lc, chol)
     stamp("default filter phases", t_start)
     lk_kernels, img_launches = image_phases(torch, lc, lko, chol.KERNELS)
     stamp("image phases", t_start)
-    tumvi_checks, tumvi_launches, tumvi_acc_launches, equi_launches, \
-        tumvi = slice11_phases(torch, lc, lko, hm, chol)
+    tumvi_checks, tumvi_launches, tumvi_acc_launches, equi_launches = \
+        slice11_phases(torch, lc, lko, hm, chol)
     stamp("TUM-VI phases", t_start)
-    hm_kernel, map_launches, mcfg, before, win, searches = mapped_phases(
+    hm_kernel, map_launches, mcfg, after, searches = mapped_phases(
         torch, lc, hm, chol.KERNELS)
-    dist_mapped = (mcfg,) + tuple(moved(torch, before, "cpu"))
+    dist_mapped = (mcfg,) + tuple(moved(torch, after, "cpu"))
+    del after
     stamp("mapped phases", t_start)
     refine_phase(torch, mcfg)
     img_map_launches = image_mapped_phase(
         torch, lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS)
-    breakdown_phase(torch, pcw_config(), (mcfg, before, win), full)
-    del full
-    del before
-    tumvi_stage_times(torch, tumvi)
-    del tumvi
-    stamp("refine, image-mapped and where-the-time-goes phases", t_start)
+    stamp("refine and image-mapped phases", t_start)
     all_kernels = lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS
     api_full_launches, api_sqrt_launches = api_pcw_phase(
         torch, all_kernels, lc)

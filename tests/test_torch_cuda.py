@@ -315,6 +315,39 @@ def test_accuracy_run_never_waits_for_the_card(cuda, ratio, b1):
     assert bool(torch.isfinite(out.Tsb).all())
 
 
+def test_traced_frame_steps_never_wait_for_the_card(cuda):
+    """With ``tracing`` on, the PCW frame step at default Dims still makes
+    no host sync (its spans read the host's clock and the allocator's
+    counters alone), and every frame span carries the allocator's
+    counts."""
+    from chip_smoke import pcw_config
+    from xivo_tpu_torch import tracing
+    from xivo_tpu_torch.runner import run_batch
+    cfg = pcw_config()
+    T = 4
+    s, fib, _ = make_run(cfg, torch, "cuda", 2, frames=T)
+    run_batch(cfg, s, fib)                   # makes the device constants
+    torch.cuda.synchronize()
+    tracing.clear()
+    tracing.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, out = run_batch(cfg, s, fib)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        tracing.disable()
+    torch.cuda.synchronize()
+    spans = tracing.records()
+    tracing.clear()
+    frames = [r for r in spans if r.name == tracing.FRAME]
+    assert len(frames) == T
+    assert all(set(f.info) == {"device_allocs", "alloc_retries"}
+               for f in frames)
+    assert {tracing.PROPAGATE, tracing.UPDATE, tracing.CHOL_LANES} \
+        <= {r.name for r in spans}
+    assert bool(torch.isfinite(out.Tsb).all())
+
+
 def test_default_filter_on_the_card_matches_the_cpu(cuda):
     """``config_from_json(PCW_CFG)`` as it stands (reference Prince-Dormand
     propagation, full covariance) at full width: the card's run of B = 2

@@ -210,6 +210,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import xivo_tpu_torch, xivo_tpu_torch.runner, xivo_tpu_torch.interop\n"
+        "import xivo_tpu_torch.tracing\n"
         "import xivo_tpu_torch.sim.stream, xivo_tpu_torch.sim.configs\n"
         "import xivo_tpu_torch.ops.lanes_chol, xivo_tpu_torch.ops.lk\n"
         "import xivo_tpu_torch.frontend.tracker, xivo_tpu_torch.frontend.lk\n"

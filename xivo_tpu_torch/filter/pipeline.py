@@ -8,6 +8,10 @@ back to the host, so a run of frames enqueues device work without a sync.
 
 Slot/row conventions as in the reference: "row" indexes the feature/group
 tables (graph capacity); "slot" indexes the EKF window.
+
+The stages are ``tracing`` spans (``PROPAGATE``, ``TRACKER``, ``UPDATE``),
+and so are the parts of fast propagation and of the update step; the
+stage functions stay module attributes under their names.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import tracing
 from ..cam import models as cam_mod
 from ..geom import so3
 from ..ops.dense import constant, take_rows
@@ -221,6 +226,7 @@ def reject_outliers(cfg: VIOConfig, xp_prev, xp_new, tracked, uniforms):
     return tracked & inl, n_rej
 
 
+@tracing.span(tracing.TRACKER)
 def tracker_pointcloud(cfg: VIOConfig, s: VIOState, meas_id, meas_xp,
                        meas_depth, meas_valid, hom_uniforms=None) -> VIOState:
     """Id-keyed synthetic measurement association
@@ -935,105 +941,113 @@ def _count(mask):
     return torch.sum(mask.to(torch.int64), dim=-1)
 
 
+@tracing.span(tracing.UPDATE)
 def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
     """The per-frame filter pipeline after tracker association
     (Estimator::UpdateStep, src/manager.cpp:18-167)."""
     d = cfg.dims
-    s, affected, n_oos_dropped = _process_tracks(cfg, s)
+    with tracing.span(tracing.TRACKS):
+        s, affected, n_oos_dropped = _process_tracks(cfg, s)
 
     # admission, then ONE correlated-init pass over the union of both
     # admission cohorts
-    if cfg.use_depth_opt:
-        s = _refine_candidate_depths(cfg, s)
-    if cfg.num_gauge_xy_features > 0:
-        s, nsm_g, ros_g = _admit_groups(cfg, s)
-    else:
-        nsm_g = torch.zeros_like(s.f2row, dtype=torch.bool)
-        ros_g = torch.full_like(s.f2row, -1)
-    s, nsm_w, ros_w = _admit_features_within_groups(cfg, s)
-    s = _apply_init_correlations(cfg, s, nsm_g | nsm_w,
-                                 torch.where(nsm_g, ros_g, ros_w))
+    with tracing.span(tracing.ADMISSION):
+        if cfg.use_depth_opt:
+            s = _refine_candidate_depths(cfg, s)
+        if cfg.num_gauge_xy_features > 0:
+            s, nsm_g, ros_g = _admit_groups(cfg, s)
+        else:
+            nsm_g = torch.zeros_like(s.f2row, dtype=torch.bool)
+            ros_g = torch.full_like(s.f2row, -1)
+        s, nsm_w, ros_w = _admit_features_within_groups(cfg, s)
+        s = _apply_init_correlations(cfg, s, nsm_g | nsm_w,
+                                     torch.where(nsm_g, ros_g, ros_w))
 
     # jacobians + MH gating
-    sj = build_stacked_jacobian(cfg, s)
-    dist = mh_distances(s.P, sj.H, sj.inn, cfg.R)
-    n_inst = _count(sj.valid)
-    if cfg.use_MH_gating:
-        inlier_slots = torch.where((n_inst > cfg.min_inliers)[:, None],
-                                   mh_gate(cfg, dist, sj.valid), sj.valid)
-    else:
-        inlier_slots = sj.valid
-    rejected_slots = sj.valid & ~inlier_slots
-    num_rej = _count(rejected_slots)
+    with tracing.span(tracing.GATING):
+        sj = build_stacked_jacobian(cfg, s)
+        dist = mh_distances(s.P, sj.H, sj.inn, cfg.R)
+        n_inst = _count(sj.valid)
+        if cfg.use_MH_gating:
+            inlier_slots = torch.where((n_inst > cfg.min_inliers)[:, None],
+                                       mh_gate(cfg, dist, sj.valid),
+                                       sj.valid)
+        else:
+            inlier_slots = sj.valid
+        rejected_slots = sj.valid & ~inlier_slots
+        num_rej = _count(rejected_slots)
 
-    # rejected features: destroy + mark their groups affected
-    s, rej_groups = _destroy_slots(cfg, s, rejected_slots)
+    with tracing.span(tracing.HYGIENE):
+        # rejected features: destroy + mark their groups affected
+        s, rej_groups = _destroy_slots(cfg, s, rejected_slots)
 
-    # group hygiene + gauge maintenance
-    s, structure_changed = _discard_affected_groups(cfg, s,
-                                                    affected | rej_groups)
-    s = _refresh_gauge_features(cfg, s)
-
-    num_1pt = torch.zeros_like(num_rej)
-    if cfg.use_1pt_RANSAC:
-        inlier_slots, ransac_rej = _one_pt_ransac(cfg, s, inlier_slots)
-        num_1pt = _count(ransac_rej)
-        s, affected2 = _destroy_slots(cfg, s, ransac_rej)
-        s, changed2 = _discard_affected_groups(cfg, s, affected2)
-        structure_changed = structure_changed | changed2
+        # group hygiene + gauge maintenance
+        s, structure_changed = _discard_affected_groups(
+            cfg, s, affected | rej_groups)
         s = _refresh_gauge_features(cfg, s)
+
+        num_1pt = torch.zeros_like(num_rej)
+        if cfg.use_1pt_RANSAC:
+            inlier_slots, ransac_rej = _one_pt_ransac(cfg, s, inlier_slots)
+            num_1pt = _count(ransac_rej)
+            s, affected2 = _destroy_slots(cfg, s, ransac_rej)
+            s, changed2 = _discard_affected_groups(cfg, s, affected2)
+            structure_changed = structure_changed | changed2
+            s = _refresh_gauge_features(cfg, s)
 
     # the EKF update with the surviving inliers; ownership transfers
     # invalidate the gating-time Jacobians, so rebuild on those frames
-    if cfg.recompute_stale_jacobians:
-        sj2 = where_state(structure_changed, build_stacked_jacobian(cfg, s),
-                          sj)
-    else:
-        sj2 = sj._replace(valid=sj.valid & (s.f2row >= 0))
-    inlier_now = sj2.valid & inlier_slots
-    if cfg.use_huber:
-        diagR = huber_robustify_R(sj2.inn, cfg.R, cfg.outlier_thresh,
-                                  s.P.dtype)
-    else:
-        diagR = torch.full(sj2.inn.shape, cfg.R, dtype=s.P.dtype,
-                           device=s.P.device)
-    err, P = measurement_update(s.P, sj2.H, sj2.inn, diagR, inlier_now)
-    do_upd = torch.any(inlier_now, dim=-1)
-    err = torch.where(do_upd[:, None], err, 0.0)
-    P = where_state(do_upd, P, s.P)
-    s = absorb_error(cfg, s._replace(P=P), err)
+    with tracing.span(tracing.EKF_UPDATE):
+        if cfg.recompute_stale_jacobians:
+            sj2 = where_state(structure_changed,
+                              build_stacked_jacobian(cfg, s), sj)
+        else:
+            sj2 = sj._replace(valid=sj.valid & (s.f2row >= 0))
+        inlier_now = sj2.valid & inlier_slots
+        if cfg.use_huber:
+            diagR = huber_robustify_R(sj2.inn, cfg.R, cfg.outlier_thresh,
+                                      s.P.dtype)
+        else:
+            diagR = torch.full(sj2.inn.shape, cfg.R, dtype=s.P.dtype,
+                               device=s.P.device)
+        err, P = measurement_update(s.P, sj2.H, sj2.inn, diagR, inlier_now)
+        do_upd = torch.any(inlier_now, dim=-1)
+        err = torch.where(do_upd[:, None], err, 0.0)
+        P = where_state(do_upd, P, s.P)
+        s = absorb_error(cfg, s._replace(P=P), err)
 
-    # record predicted pixels (Feature::Predict bookkeeping)
-    fr = s.features
-    tgt_rows = torch.where(sj2.valid, s.f2row, d.nf_rows)
-    oh_pred = _onehot_rows(tgt_rows, d.nf_rows)                # (B, F, NF)
-    hit_pred = torch.any(oh_pred, dim=-2)
-    new_pred = oh_pred.to(fr.pred.dtype).transpose(-1, -2) \
-        @ sj2.pred.to(fr.pred.dtype)
-    s = s._replace(features=fr._replace(
-        pred=_where(hit_pred, new_pred, fr.pred)))
+    with tracing.span(tracing.BOOKKEEPING):
+        # record predicted pixels (Feature::Predict bookkeeping)
+        fr = s.features
+        tgt_rows = torch.where(sj2.valid, s.f2row, d.nf_rows)
+        oh_pred = _onehot_rows(tgt_rows, d.nf_rows)            # (B, F, NF)
+        hit_pred = torch.any(oh_pred, dim=-2)
+        new_pred = oh_pred.to(fr.pred.dtype).transpose(-1, -2) \
+            @ sj2.pred.to(fr.pred.dtype)
+        s = s._replace(features=fr._replace(
+            pred=_where(hit_pred, new_pred, fr.pred)))
 
-    # post-update bookkeeping
-    s = _create_group_and_init_tracks(cfg, s)
-    s = _adapt_initial_depth(cfg, s)
-    s = _enforce_max_group_lifetime(cfg, s)
-    s = _switch_gauge_group(cfg, s)
-    s = s._replace(vision_counter=s.vision_counter + 1)
+        # post-update bookkeeping
+        s = _create_group_and_init_tracks(cfg, s)
+        s = _adapt_initial_depth(cfg, s)
+        s = _enforce_max_group_lifetime(cfg, s)
+        s = _switch_gauge_group(cfg, s)
+        s = s._replace(vision_counter=s.vision_counter + 1)
 
-    inn_masked = sj2.inn.reshape(inlier_now.shape + (2,)) \
-        * inlier_now[..., None]
-    inn_rms = torch.sqrt(torch.sum(inn_masked ** 2, dim=(-2, -1))
-                         / torch.clamp(2 * _count(inlier_now), min=1))
-    out = StepOutputs(
-        Rsb=s.X.Rsb, Tsb=s.X.Tsb, Vsb=s.X.Vsb,
-        num_instate_features=_count(s.f2row >= 0),
-        num_instate_groups=_count(s.g2row >= 0),
-        num_tracked=_count(s.features.track == TS_TRACKED),
-        num_mh_rejected=num_rej,
-        num_oneptransac_rejected=num_1pt,
-        num_tracker_outlier_rejected=s.n_tracker_rejected,
-        inn_rms=inn_rms,
-        num_oos_dropped=n_oos_dropped)
+        inn_masked = sj2.inn.reshape(inlier_now.shape + (2,)) \
+            * inlier_now[..., None]
+        inn_rms = torch.sqrt(torch.sum(inn_masked ** 2, dim=(-2, -1))
+                             / torch.clamp(2 * _count(inlier_now), min=1))
+        out = StepOutputs(
+            Rsb=s.X.Rsb, Tsb=s.X.Tsb, Vsb=s.X.Vsb,
+            num_instate_features=_count(s.f2row >= 0),
+            num_instate_groups=_count(s.g2row >= 0),
+            num_tracked=_count(s.features.track == TS_TRACKED),
+            num_mh_rejected=num_rej,
+            num_oneptransac_rejected=num_1pt,
+            num_tracker_outlier_rejected=s.n_tracker_rejected,
+            inn_rms=inn_rms,
+            num_oos_dropped=n_oos_dropped)
     return s, out
 
 
@@ -1061,32 +1075,36 @@ def _propagate_frame_fast(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
         return (Xn, Phi_i @ Phi,
                 Phi_i @ Q @ Phi_i.transpose(-1, -2) + Qi)
 
-    for k in range(imu_dt.shape[1]):
-        gy, ac, dti = imu_gyro[:, k], imu_accel[:, k], imu_dt[:, k]
-        dts = torch.clamp(dti, min=1e-12)[:, None]
-        sgn, san = (gy - lg) / dts, (ac - la) / dts
-        new = step(X, Phi, Q, lg, la, sgn, san, dti) + (
-            gy, ac, sgn.to(dtype), san.to(dtype), nprop + 1)
-        (X, Phi, Q, lg, la, sg, sa, nprop) = where_state(
-            dti > 0, new, (X, Phi, Q, lg, la, sg, sa, nprop))
+    with tracing.span(tracing.IMU_SLOTS):
+        for k in range(imu_dt.shape[1]):
+            gy, ac, dti = imu_gyro[:, k], imu_accel[:, k], imu_dt[:, k]
+            dts = torch.clamp(dti, min=1e-12)[:, None]
+            sgn, san = (gy - lg) / dts, (ac - la) / dts
+            new = step(X, Phi, Q, lg, la, sgn, san, dti) + (
+                gy, ac, sgn.to(dtype), san.to(dtype), nprop + 1)
+            (X, Phi, Q, lg, la, sg, sa, nprop) = where_state(
+                dti > 0, new, (X, Phi, Q, lg, la, sg, sa, nprop))
 
     # visual-frame extrapolation segment
-    vis = step(X, Phi, Q, lg, la, sg, sa, dt_eff) + (
-        lg + sg * dt_eff[:, None], la + sa * dt_eff[:, None], nprop + 1)
-    X, Phi, Q, lg, la, nprop = where_state(dt_eff > 0, vis,
-                                           (X, Phi, Q, lg, la, nprop))
-    if cfg.use_oc:
-        Phi = oc_correct_phi(cfg, Phi, X, s.oc_R, s.oc_V, s.oc_T, s.X.Rsg)
-        s = s._replace(oc_R=X.Rsb, oc_V=X.Vsb, oc_T=X.Tsb)
+    with tracing.span(tracing.VISUAL_SEGMENT):
+        vis = step(X, Phi, Q, lg, la, sg, sa, dt_eff) + (
+            lg + sg * dt_eff[:, None], la + sa * dt_eff[:, None], nprop + 1)
+        X, Phi, Q, lg, la, nprop = where_state(dt_eff > 0, vis,
+                                               (X, Phi, Q, lg, la, nprop))
+        if cfg.use_oc:
+            Phi = oc_correct_phi(cfg, Phi, X, s.oc_R, s.oc_V, s.oc_T,
+                                 s.X.Rsg)
+            s = s._replace(oc_R=X.Rsb, oc_V=X.Vsb, oc_T=X.Tsb)
 
-    Qd = Q + nprop.to(dtype)[:, None, None] \
-        * torch.diag(qmodel_diag(cfg, dtype, s.P.device))
-    if is_sqrt(cfg):
-        P = factor_propagate_absorb(cfg, s.P, Phi, Qd)
-    else:
-        Pmm = Phi @ s.P[:, :m, :m] @ Phi.transpose(-1, -2) + Qd
-        P = with_motion_block(s.P, 0.5 * (Pmm + Pmm.transpose(-1, -2)),
-                              Phi @ s.P[:, :m, m:])
+    with tracing.span(tracing.COV_PROPAGATE):
+        Qd = Q + nprop.to(dtype)[:, None, None] \
+            * torch.diag(qmodel_diag(cfg, dtype, s.P.device))
+        if is_sqrt(cfg):
+            P = factor_propagate_absorb(cfg, s.P, Phi, Qd)
+        else:
+            Pmm = Phi @ s.P[:, :m, :m] @ Phi.transpose(-1, -2) + Qd
+            P = with_motion_block(s.P, 0.5 * (Pmm + Pmm.transpose(-1, -2)),
+                                  Phi @ s.P[:, :m, m:])
     if cfg.fast_substeps > 0:
         # the grid's substeps skip the polar projection; restore
         # orthonormality once a frame
@@ -1095,6 +1113,7 @@ def _propagate_frame_fast(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
                       slope_gyro=sg, slope_accel=sa)
 
 
+@tracing.span(tracing.PROPAGATE)
 def propagate_frame(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
                     imu_dt, frame_dt) -> VIOState:
     """Frame-interval propagation: the IMU samples, then extrapolation to

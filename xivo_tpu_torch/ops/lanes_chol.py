@@ -22,7 +22,8 @@ PyTorch version beside each kernel (which mirrors the reference's
 ``_chol_fallback``/``_tri_inv_fallback``); a CUDA tensor launches the
 kernel or raises. The kernels are built with ``nvcc`` at the first CUDA
 call (never at import) into ``xivo_tpu_torch/_build/`` and loaded with
-``ctypes`` (``ops/_build.py``).
+``ctypes`` (``ops/_build.py``). Each entry is a ``tracing`` span of its
+own name.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import _build
 
 _FLOOR = 1e-30
@@ -94,6 +96,7 @@ def _check_input(X):
         raise ValueError("expected a contiguous tensor")
 
 
+@tracing.span(tracing.CHOL_LANES)
 def chol_lanes(G: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky of (B, m, m) PSD matrices (masked-pivot contract):
     on the card, the blocked kernel of ``csrc/chol_blocked.cu``, counted
@@ -104,6 +107,7 @@ def chol_lanes(G: torch.Tensor) -> torch.Tensor:
     return chol.launch(G, CHOL)
 
 
+@tracing.span(tracing.CHOL_INV_LANES)
 def chol_inv_lanes(G: torch.Tensor):
     """(L, L^-1) of (B, m, m) PSD matrices in one launch: L is
     ``chol_lanes``'s, bit for bit."""
@@ -121,6 +125,7 @@ def chol_inv_lanes(G: torch.Tensor):
     return L, Linv
 
 
+@tracing.span(tracing.TRI_INV_LANES)
 def tri_inv_lanes(L: torch.Tensor) -> torch.Tensor:
     """Inverse of (B, m, m) lower-triangular matrices with positive or dead
     (zero) diagonals; only the lower triangle of L is read."""

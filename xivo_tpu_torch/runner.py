@@ -24,6 +24,9 @@ Where the config propagates through the capped substep loops
 counters before its first frame and, unless called with ``check=False``,
 reads them once after its last and raises if the cap left an interval
 unfinished. ``fit_substeps`` sizes the cap from a packed stream.
+
+Each runner's frame loop opens a ``tracing.FRAME`` span around a frame's
+draws and step (off unless ``tracing.enable()`` was called).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .filter import propagate
 from .filter.config import VIOConfig
 from .filter.pipeline import StepOutputs, vio_frame
@@ -199,9 +203,10 @@ def run_batch(cfg: VIOConfig, states: VIOState, fis: FrameInputs,
         s = states
         outs = []
         for t in range(fis.frame_dt.shape[1]):
-            hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms,
-                                 rows=rows)
-            s, out = vio_frame(cfg, s, *(a[:, t] for a in fis), hom)
+            with tracing.span(tracing.FRAME):
+                hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms,
+                                     rows=rows)
+                s, out = vio_frame(cfg, s, *(a[:, t] for a in fis), hom)
             outs.append(out)
         return s, _stack(outs)
     return _checked(cfg, states.P.device, check, loop)
@@ -272,9 +277,10 @@ def run_batch_image(cfg: VIOConfig, states: VIOState, fes: FrontendState,
         s, f = states, fes
         outs = []
         for t in range(fis.frame_dt.shape[1]):
-            hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms)
-            s, f, out = vio_frame_image(cfg, s, f, *(a[:, t] for a in fis),
-                                        hom)
+            with tracing.span(tracing.FRAME):
+                hom, _ = frame_draws(cfg, s, gen, False, t, hom_uniforms)
+                s, f, out = vio_frame_image(cfg, s, f,
+                                            *(a[:, t] for a in fis), hom)
             outs.append(out)
         return s, f, _stack(outs)
     return _checked(cfg, states.P.device, check, loop)
@@ -341,9 +347,10 @@ def _run_mapped(cfg, step, carry, fis, seed, uniforms, hom_uniforms,
         c = carry
         outs, lcs = [], []
         for t in range(fis.frame_dt.shape[1]):
-            h, u = frame_draws(cfg, c[0], gen, True, t, hom_uniforms,
-                               uniforms)
-            *c, out, n_lc = step(*c, *(a[:, t] for a in fis), u, h)
+            with tracing.span(tracing.FRAME):
+                h, u = frame_draws(cfg, c[0], gen, True, t, hom_uniforms,
+                                   uniforms)
+                *c, out, n_lc = step(*c, *(a[:, t] for a in fis), u, h)
             outs.append(out)
             lcs.append(n_lc)
         return (*c, _stack(outs), torch.stack(lcs, dim=1))
