@@ -273,6 +273,16 @@ taken down at the end; each path counted under the sync debug mode):
    runner against the default (``run_batch``), each runner's frame loop
    under the sync check: fused trajectory and outputs equal, launches
    equal.
+fast propagation's IMU chain (phase 35 runs right after phase 5):
+35. the kernel of ``csrc/imu_chain.cu`` against its plain version
+   (``ops/imu_chain.chain_plain``) on random inputs in float32 and
+   float64 (each output within ``CHAIN_TOL`` of the plain version, see
+   ``chain_errors``), then timed with the plain version at the two
+   benchmark cells' shapes, B = 4096 rows of KI = 5 slots of 10 ms and
+   KI = 10 of 5 ms, S = 4, dt_eff = 0 (each output within the float32
+   ``CHAIN_TOL`` there too), beside its bound. Every counted run checks
+   the chain's launches: one a frame step on fast propagation's static
+   grid, none on every other path (``chain_launches``).
 Each kernel's entry in the JSON line carries its launches on every
 path (B7's ``launches`` are the profile's; 0 on the filter paths). The
 last lines are the kernels' JSON line, the card line, and
@@ -753,6 +763,159 @@ def two_calls_line(name, t):
             f"{t['library_two_calls_ms']:.4f} ms")
 
 
+# the IMU chain against its plain version, per output (chain_errors):
+# float32 ~1e-5 (the plain float32 version's own error against float64 is
+# ~1e-6 on these inputs: the kernel sums in another order, over ~50
+# substeps), float64 1e-12
+CHAIN_TOL = {"float32": 1e-5, "float64": 1e-12}
+CHAIN_B = 4096          # the benchmark cells' batch
+CHAIN_SHAPES = ((5, 0.01), (10, 0.005))     # (KI, slot dt s): 100, 200 Hz
+
+
+def imu_chain_inputs(torch, B, KI, dtype, seed, dt=None, device=DEV):
+    """The IMU chain's inputs for B rows on `device`: (X, lg, la, sg, sa,
+    gyro, accel, slot dt, dt_eff), any rotation, Rsg near the identity,
+    non-identity Cg and upper-triangular Ca, biases. With `dt` every slot
+    is dt long and dt_eff 0, as a packed stream at that rate; else slot
+    lengths of 0.5-12 ms, padded slots (0) in the middle of row 0, at the
+    end of row 1 and in all of row 2, and dt_eff 0 on every third row."""
+    from xivo_tpu_torch.filter.state import MotionState
+    from xivo_tpu_torch.geom import so3
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    def rot(scale):
+        w = torch.tensor(rng.standard_normal((B, 3)) * scale)
+        return t(so3.exp(w).numpy())
+    eye = np.eye(3)
+    X = MotionState(
+        Rsb=rot(1.0), Tsb=t(rng.standard_normal((B, 3))),
+        Vsb=t(rng.standard_normal((B, 3))),
+        bg=t(rng.standard_normal((B, 3)) * 0.01),
+        ba=t(rng.standard_normal((B, 3)) * 0.05), Rbc=rot(0.1),
+        Tbc=t(np.zeros((B, 3))), Rsg=rot(0.05), td=t(np.zeros(B)),
+        Cg=t(eye + rng.standard_normal((B, 3, 3)) * 0.01),
+        Ca=t(np.triu(eye + rng.standard_normal((B, 3, 3)) * 0.01)))
+    g0 = np.array([0.0, 9.8, 0.0])
+    lg = rng.standard_normal((B, 3)) * 0.3
+    la = rng.standard_normal((B, 3)) + g0
+    sg, sa = rng.standard_normal((B, 3)), rng.standard_normal((B, 3))
+    gy = rng.standard_normal((B, KI, 3)) * 0.3
+    ac = rng.standard_normal((B, KI, 3)) + g0
+    if dt is None:
+        dts = rng.uniform(0.0005, 0.012, (B, KI))
+        dts[0, KI // 2] = 0.0
+        dts[1 % B, -1] = 0.0
+        if B > 2:
+            dts[2] = 0.0
+        dte = rng.uniform(0.0, 0.006, B)
+        dte[::3] = 0.0
+    else:
+        dts, dte = np.full((B, KI), dt), np.zeros(B)
+    return (X, t(lg), t(la), t(sg), t(sa), t(gy), t(ac), t(dts), t(dte))
+
+
+def chain_config(S=4):
+    return dataclasses.replace(pcw_config(), fast_substeps=S)
+
+
+def chain_errors(torch, got, ref):
+    """The kernel's outputs (X, Phi, Q, lg, la, sg, sa, nprop) against the
+    plain version's: for Q, |dQ_ij| / sqrt(Q_ii Q_jj) (a covariance's
+    entries are bounded so; where that is 0 the entry must be exactly 0);
+    for every other output the row's largest |difference| over its
+    largest |entry|; nprop must be equal. Returns {output: error}."""
+    torch.cuda.synchronize()
+    (Xg, *g), (Xr, *r) = got, ref
+    pairs = dict(Rsb=(Xg.Rsb, Xr.Rsb), Tsb=(Xg.Tsb, Xr.Tsb),
+                 Vsb=(Xg.Vsb, Xr.Vsb), Phi=(g[0], r[0]), lg=(g[2], r[2]),
+                 la=(g[3], r[3]), sg=(g[4], r[4]), sa=(g[5], r[5]))
+    err = {}
+    for name, (a, b) in pairs.items():
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"imu_chain: non-finite {name}")
+        scale = b.abs().amax(-1, keepdim=True)
+        err[name] = float(((a - b).abs() / torch.where(
+            scale > 0, scale, torch.ones_like(scale))).max())
+    d = torch.sqrt(torch.diagonal(r[1], dim1=-2, dim2=-1).clamp(min=0))
+    den = d[:, :, None] * d[:, None, :]
+    dq = (g[1] - r[1]).abs()
+    if bool(((den == 0) & (dq > 0)).any()):
+        raise AssertionError("imu_chain: Q off its plain version's zeros")
+    err["Q"] = float(torch.where(den > 0, dq / torch.where(
+        den > 0, den, torch.ones_like(den)), torch.zeros_like(dq)).max())
+    if not torch.equal(g[6], r[6]):
+        raise AssertionError("imu_chain: interval counts differ")
+    return err
+
+
+def chain_work(dts, dte, S, h0, KI):
+    """(bytes, flops) of one chain call at least: the inputs read and the
+    outputs written once; 67,392 flops an active substep (A: 9 x 39
+    entries of 9 products, P9's 9, M's and Q's columns' 39 each)."""
+    B = dts.shape[0]
+    lens = np.concatenate([dts, dte[:, None]], axis=1)
+    n = np.clip(np.ceil(lens / h0), 1, S) * (lens > 0)
+    flops = float(n.sum()) * 2 * 351 * (9 + 9 + 39 + 39)
+    n_bytes = B * ((61 + 7 * KI + 27 + 2 * 39 * 39) * 4 + 8)
+    return n_bytes, flops
+
+
+def check_imu_chain(torch):
+    """Phase 35: hold the IMU-chain kernel against its plain version and
+    time both at the benchmark cells' shapes; returns its JSON entry."""
+    from xivo_tpu_torch.ops import imu_chain as ic
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        for KI, S, Bc in ((1, 4, 1), (5, 4, 257), (10, 4, 64), (11, 5, 33)):
+            args = imu_chain_inputs(torch, Bc, KI, dtype, seed=KI + S)
+            cfg = chain_config(S)
+            n = ic.CHAIN.launches
+            got = ic.imu_chain(cfg, *args)
+            if ic.CHAIN.launches != n + 1:
+                raise AssertionError("imu_chain: not one launch a call")
+            err = chain_errors(torch, got, ic.chain_plain(cfg, *args))
+            worst[name] = max([worst.get(name, 0.0)] + list(err.values()))
+        print(f"kernel imu_chain: {name} random inputs, worst error "
+              f"{worst[name]:.3e} (limit {CHAIN_TOL[name]:.0e})", flush=True)
+        if worst[name] > CHAIN_TOL[name]:
+            raise AssertionError(f"imu_chain: {name} error above its limit")
+    cfg = chain_config(4)
+    times = {}
+    for KI, dt in CHAIN_SHAPES:
+        args = imu_chain_inputs(torch, CHAIN_B, KI, torch.float32,
+                                seed=KI, dt=dt)
+        err = chain_errors(torch, ic.imu_chain(cfg, *args),
+                           ic.chain_plain(cfg, *args))
+        if max(err.values()) > CHAIN_TOL["float32"]:
+            raise AssertionError(f"imu_chain: B={CHAIN_B} KI={KI} error "
+                                 f"above its limit: {err}")
+        n_bytes, flops = chain_work(args[7].cpu().numpy(),
+                                    args[8].cpu().numpy(), 4, cfg.stepsize,
+                                    KI)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        t = dict(ms=cuda_ms(torch, lambda: ic.imu_chain(cfg, *args)),
+                 plain_ms=cuda_ms(torch, lambda: ic.chain_plain(cfg, *args),
+                                  reps=3),
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 error=max(err.values()), shape=[CHAIN_B, KI, 4])
+        times[f"KI{KI}"] = t
+        print(f"kernel imu_chain: B={CHAIN_B} KI={KI} S=4 float32 "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{n_bytes / 1e6:.1f} MB); worst error {t['error']:.3e}",
+              flush=True)
+    return dict(name="imu_chain", route="cuda",
+                source="xivo_tpu_torch/csrc/imu_chain.cu",
+                replaces="none: XLA's fusion of the unrolled lax.scan of "
+                         "xivo_tpu/filter/pipeline.py:1246",
+                library_ms=None, worst_error=worst, times=times)
+
+
 def check_kernels(torch, lc, captured):
     """Hold each Cholesky kernel against its plain version; time all
     three."""
@@ -1039,6 +1202,15 @@ def counted(torch, kernels, fn, sync_check=True):
     return out, wall, {k.name: k.launches for k in kernels}
 
 
+def chain_launches(cfg, T):
+    """{the IMU chain's name: its launches over T frame steps of `cfg`}: one
+    a step on fast propagation's static grid (``fast_substeps > 0``), none
+    on every other path."""
+    from xivo_tpu_torch.ops import imu_chain as ic
+    grid = cfg.propagation_mode == "fast" and cfg.fast_substeps > 0
+    return {ic.CHAIN.name: T if grid else 0}
+
+
 def pcw_config():
     from xivo_tpu_torch.filter.config import config_from_json
     from xivo_tpu_torch.sim.configs import PCW_CFG
@@ -1053,7 +1225,8 @@ def pcw_phases(torch, lc, others):
     the kernels not on this path, counted at 0)."""
     from xivo_tpu_torch.runner import run_batch
     cfg = pcw_config()
-    assert cfg.dims.full == 228
+    assert (cfg.dims.full, cfg.propagation_mode) == (228, "fast")
+    assert cfg.fast_substeps > 0    # the IMU chain: one launch a frame step
 
     # phase 3: a few frames with the kernels' inputs recorded
     names = [k.name for k in lc.KERNELS]
@@ -1092,6 +1265,7 @@ def pcw_phases(torch, lc, others):
         raise AssertionError(f"ATE {ate} >= {ATE_BOUND}")
     expect = {k.name: T for k in lc.KERNELS}
     expect.update({k.name: 0 for k in others})
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     for k in kernels:
@@ -1183,6 +1357,7 @@ def image_phases(torch, lc, lko, others):
     expect = {k.name: T for k in lc.KERNELS}
     expect.update({k.name: cfg.klt_max_level * T for k in lko.KERNELS})
     expect.update({k.name: 0 for k in others})
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     for k in kernels:
@@ -1581,6 +1756,7 @@ def mapped_phases(torch, lc, hm, others):
     expect = {"chol_lanes": T, "chol_inv_lanes": 2 * T,
               "tri_inv_lanes": 2 * T, "hamming_nn": 3 * T}
     expect.update({k.name: 0 for k in others})
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -1673,6 +1849,7 @@ def image_mapped_phase(torch, kernels):
     expect = {"chol_lanes": T, "chol_inv_lanes": 2 * T,
               "tri_inv_lanes": 2 * T, "lk_sample_templates": L * T,
               "lk_gn_tracks": L * T, "hamming_nn": 3 * T, "chol_blocked": 0}
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
@@ -1847,9 +2024,10 @@ def accuracy_phases(torch, lc, chol, base_ate):
     from xivo_tpu_torch.filter import oos
     from xivo_tpu_torch.runner import run_batch
     from xivo_tpu_torch.sim.configs import accuracy_config
+    from xivo_tpu_torch.ops import imu_chain as ic
     cfg = accuracy_config()
     assert cfg.dims.full == 228
-    kernels = lc.KERNELS + chol.KERNELS
+    kernels = lc.KERNELS + chol.KERNELS + ic.KERNELS
     compare_accuracy_paths(torch, cfg, oos)
 
     # phase 18: the accuracy path at full width, counted
@@ -1884,6 +2062,7 @@ def accuracy_phases(torch, lc, chol, base_ate):
                              "update applied")
     expect = {"chol_lanes": T, "chol_inv_lanes": 3 * T,
               "tri_inv_lanes": 3 * T, "chol_blocked": 0}
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -1913,6 +2092,7 @@ def accuracy_phases(torch, lc, chol, base_ate):
           f"{claunches}", flush=True)
     expect = {"chol_lanes": 2 * T, "chol_inv_lanes": 3 * T,
               "tri_inv_lanes": 3 * T, "chol_blocked": 0}
+    expect.update(chain_launches(ccfg, T))
     if claunches != expect or not torch.isfinite(outs.Tsb).all():
         raise AssertionError(f"launches {claunches}, expected {expect}")
     inputs = [a[0] for a in seen["chol_lanes"] if a[0].shape[-1] == 229]
@@ -1944,9 +2124,10 @@ def full_form_phases(torch, lc, chol):
     run's launches, the full-form accuracy run's launches with compression
     forced and B1's check at 229 on that run's inputs."""
     from xivo_tpu_torch.filter import oos, propagate
+    from xivo_tpu_torch.ops import imu_chain as ic
     from xivo_tpu_torch.runner import run_batch
     from xivo_tpu_torch.sim.configs import accuracy_config
-    kernels = lc.KERNELS + chol.KERNELS
+    kernels = lc.KERNELS + chol.KERNELS + ic.KERNELS
 
     # phase 20: the unmodified config, CUDA path against the CPU path
     cfg = default_config()
@@ -2022,6 +2203,7 @@ def full_form_phases(torch, lc, chol):
           flush=True)
     expect = {"chol_lanes": T, "chol_inv_lanes": 0, "tri_inv_lanes": 0,
               "chol_blocked": 0}
+    expect.update(chain_launches(ccfg, T))
     if claunches != expect or not torch.isfinite(outs.Tsb).all():
         raise AssertionError(f"launches {claunches}, expected {expect}")
     inputs = [a[0] for a in seen["chol_lanes"] if a[0].shape[-1] == 229]
@@ -2199,6 +2381,7 @@ def tumvi_phases(torch, lc, lko, others):
         raise AssertionError("TUM-VI path outside the image path's bounds")
     expect = {k.name: 0 for k in kernels}
     expect.update({k.name: cfg.klt_max_level * T for k in lko.KERNELS})
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     del s, f, outs
@@ -2245,6 +2428,7 @@ def equidistant_bench_phase(torch, kernels):
     expect.update({"chol_lanes": T, "chol_inv_lanes": T, "tri_inv_lanes": T,
                    "lk_sample_templates": cfg.klt_max_level * T,
                    "lk_gn_tracks": cfg.klt_max_level * T})
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
@@ -2263,6 +2447,7 @@ def tumvi_accuracy_phase(torch, lko, kernels):
     print(f"{label}: cuda launches {launches}", flush=True)
     expect = {k.name: 0 for k in kernels}
     expect.update({k.name: cfg.klt_max_level * T for k in lko.KERNELS})
+    expect.update(chain_launches(cfg, T))
     b1 = launches.pop("chol_lanes")
     expect.pop("chol_lanes")
     if launches != expect or b1 > T or rows.sum() == 0:
@@ -2326,7 +2511,8 @@ def check_oos_shape(torch, name, kernel, plain, inputs, backward=False):
 def slice11_phases(torch, lc, lko, hm, chol):
     """Phases 23-26. Returns B4-B5's checks at the TUM-VI shapes and the
     launches of phases 24, 26 and 25."""
-    others = hm.KERNELS + chol.KERNELS
+    from xivo_tpu_torch.ops import imu_chain as ic
+    others = hm.KERNELS + chol.KERNELS + ic.KERNELS
     kernels = lc.KERNELS + lko.KERNELS + others
     checks, launches = tumvi_phases(torch, lc, lko, others)
     equi = equidistant_bench_phase(torch, kernels)
@@ -2426,6 +2612,7 @@ def api_pcw_phase(torch, kernels, lc):
         expect = {k.name: 0 for k in kernels}
         if cfg.covariance_form == "sqrt":
             expect.update({k.name: n for k in lc.KERNELS})
+        expect.update(chain_launches(cfg, n))
         print(f"api {label} (Estimator, PCW_CFG, D={cfg.dims.full}, "
               f"float32, B=1): {n} frames, CUDA {wall:.3f} s = "
               f"{n / wall:.2f} frames/s of one sequence (CPU, {n_cpu} "
@@ -2480,6 +2667,7 @@ def asl_replay_phase(torch, kernels, lko):
         raise AssertionError("the ASL replay is outside its bounds")
     expect = {k.name: 0 for k in kernels}
     expect.update({k.name: cfg.klt_max_level * n for k in lko.KERNELS})
+    expect.update(chain_launches(cfg, n))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
@@ -2543,6 +2731,7 @@ def tumvi_api_phase(torch, kernels, lko):
         raise AssertionError("the TUM-VI replay lost frames or poses")
     expect = {k.name: 0 for k in kernels}
     expect.update({k.name: cfg.klt_max_level * n for k in lko.KERNELS})
+    expect.update(chain_launches(cfg, n))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return launches
@@ -2638,6 +2827,7 @@ def options_phase(torch, lc, others):
     expect = {k.name: 0 for k in others}
     expect.update({"chol_lanes": T, "chol_inv_lanes": 4 * T,
                    "tri_inv_lanes": 4 * T})
+    expect.update(chain_launches(cfg, T))
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
 
@@ -2805,6 +2995,7 @@ def front_end_main_run(torch, label, cfg, stream, kernels, expect):
           f"launches {launches}", flush=True)
     want = {k.name: 0 for k in kernels}
     want.update({name: n * T for name, n in expect.items()})
+    want.update(chain_launches(cfg, T))
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     return outs, launches
@@ -2992,6 +3183,7 @@ def dist_phase(torch, kernels, searches, mapped):
     want = {k.name: 0 for k in kernels}
     want.update({name: DIST_FRAMES for name in
                  ("chol_lanes", "chol_inv_lanes", "tri_inv_lanes")})
+    want.update(chain_launches(cfg, DIST_FRAMES))
     if not (l1 == l0 == want and inst > 0):
         raise AssertionError(f"launches {l1}, {l0}, expected {want}; "
                              f"in-state features {inst}")
@@ -3115,6 +3307,7 @@ def main():
     import xivo_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from xivo_tpu_torch.ops import chol
     from xivo_tpu_torch.ops import hamming as hm
+    from xivo_tpu_torch.ops import imu_chain as ic
     from xivo_tpu_torch.ops import lanes_chol as lc
     from xivo_tpu_torch.ops import lk as lko
 
@@ -3131,35 +3324,39 @@ def main():
     chol_entry = check_chol_blocked(torch, lc, chol)
     chol_entry["launches"] = profile_phase(torch, chol)
     stamp("B7 phases", t_start)
-    kernels, base_ate, pcw_launches = pcw_phases(torch, lc, chol.KERNELS)
+    kernels, base_ate, pcw_launches = pcw_phases(torch, lc,
+                                                chol.KERNELS + ic.KERNELS)
     stamp("pcw phases", t_start)
+    chain_entry = check_imu_chain(torch)
+    stamp("IMU chain phase", t_start)
     acc_launches, oos_shapes = accuracy_phases(torch, lc, chol, base_ate)
     stamp("accuracy phases", t_start)
     full_launches, full_acc_launches, full_b1 = full_form_phases(
         torch, lc, chol)
     stamp("default filter phases", t_start)
-    lk_kernels, img_launches = image_phases(torch, lc, lko, chol.KERNELS)
+    lk_kernels, img_launches = image_phases(torch, lc, lko,
+                                            chol.KERNELS + ic.KERNELS)
     stamp("image phases", t_start)
     tumvi_checks, tumvi_launches, tumvi_acc_launches, equi_launches = \
         slice11_phases(torch, lc, lko, hm, chol)
     stamp("TUM-VI phases", t_start)
     hm_kernel, map_launches, mcfg, after, searches = mapped_phases(
-        torch, lc, hm, chol.KERNELS)
+        torch, lc, hm, chol.KERNELS + ic.KERNELS)
     dist_mapped = (mcfg,) + tuple(moved(torch, after, "cpu"))
     del after
     stamp("mapped phases", t_start)
     refine_phase(torch, mcfg)
-    img_map_launches = image_mapped_phase(
-        torch, lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS)
+    all_kernels = (lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS
+                   + ic.KERNELS)
+    img_map_launches = image_mapped_phase(torch, all_kernels)
     stamp("refine and image-mapped phases", t_start)
-    all_kernels = lc.KERNELS + lko.KERNELS + hm.KERNELS + chol.KERNELS
     api_full_launches, api_sqrt_launches = api_pcw_phase(
         torch, all_kernels, lc)
     asl_launches = asl_replay_phase(torch, all_kernels, lko)
     tumvi_api_launches = tumvi_api_phase(torch, all_kernels, lko)
     stamp("API phases", t_start)
     opt_launches, opt_checks = options_phase(
-        torch, lc, lko.KERNELS + hm.KERNELS + chol.KERNELS)
+        torch, lc, lko.KERNELS + hm.KERNELS + chol.KERNELS + ic.KERNELS)
     stamp("options phase", t_start)
     bat_launches = batched_phase(torch, all_kernels)
     stamp("batched propagation phase", t_start)
@@ -3177,7 +3374,7 @@ def main():
         if k["name"] == "chol_lanes":
             k["full_form_compression"] = full_b1
     hm_kernel.update(dist_extra)
-    kernels += lk_kernels + [hm_kernel, chol_entry]
+    kernels += lk_kernels + [hm_kernel, chol_entry, chain_entry]
     for k in kernels:
         name = k["name"]
         k["launches_pcw_path"] = pcw_launches.get(name, 0)

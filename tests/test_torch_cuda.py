@@ -48,6 +48,17 @@ The fusion of ``retire_features`` on the card against the CPU, from the
 same state and map: tables equal, positions (m) and covariances (of
 their largest entry) within ``chip_smoke``'s ``MAP_FUSE_TOL32`` in
 float32 and ``MAP_FUSE_TOL64`` in float64 (see there why they differ).
+Fast propagation's IMU chain (``ops/imu_chain``, one launch a frame):
+against its plain version in float32 and float64 on 1 to 11 slots, 4 and
+5 grid substeps, padded slots mid-row and at the end, rows with dt_eff =
+0, non-identity Cg, Ca and Rsg, B from 1 to 4096, each output within
+``chip_smoke``'s ``CHAIN_TOL`` (float32 1e-5: the kernel sums in another
+order over ~50 substeps, and the plain float32 version's own error
+against float64 is ~1e-6 there; float64 1e-12), the interval counts
+equal; the wrapper's refusals; one launch a PCW frame step with no host
+sync, a ``use_oc`` run on the card against the CPU, and no launch on the
+capped loop (``fast_substeps = 0``), batched propagation or the default
+filter.
 The homography RANSAC on the card against the CPU (masks and ``ok``
 equal, no host sync), and the distorted camera models in float32 on the
 card against the CPU.
@@ -63,21 +74,25 @@ the CPU: at most ``DESC_BIT_SHARE`` of the bits differ (the orientation
 sums run in another order on the card, so a bit whose two samples lie
 within rounding may flip).
 """
+import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DESC_BIT_SHARE, GN_UNCONV_TOL, MAP_FUSE_TOL32,
-                        MAP_FUSE_TOL64, Recorder, backward_use,
+from chip_smoke import (CHAIN_TOL, DESC_BIT_SHARE, GN_UNCONV_TOL,
+                        MAP_FUSE_TOL32, MAP_FUSE_TOL64, Recorder,
+                        backward_use, chain_config, chain_errors,
                         compare_api_frames, compare_retire, drive_api,
-                        make_mapped_run, make_run, mapped_config,
-                        mapped_stream, random_hamming_inputs, texture)
+                        imu_chain_inputs, make_mapped_run, make_run,
+                        mapped_config, mapped_stream, random_hamming_inputs,
+                        texture)
 from xivo_tpu_torch.frontend import lk as flk
 from xivo_tpu_torch.frontend.image import build_pyramid
 from xivo_tpu_torch.ops import chol
 from xivo_tpu_torch.ops import hamming as hm
+from xivo_tpu_torch.ops import imu_chain as ic
 from xivo_tpu_torch.ops import lanes_chol as lc
 from xivo_tpu_torch.ops import lk as lko
 
@@ -330,6 +345,7 @@ def test_traced_frame_steps_never_wait_for_the_card(cuda):
     torch.cuda.synchronize()
     tracing.clear()
     tracing.enable()
+    n = ic.CHAIN.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         _, out = run_batch(cfg, s, fib)
@@ -337,6 +353,7 @@ def test_traced_frame_steps_never_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
         tracing.disable()
     torch.cuda.synchronize()
+    assert ic.CHAIN.launches == n + T       # the IMU chain: one a frame
     spans = tracing.records()
     tracing.clear()
     frames = [r for r in spans if r.name == tracing.FRAME]
@@ -345,6 +362,48 @@ def test_traced_frame_steps_never_wait_for_the_card(cuda):
                for f in frames)
     assert {tracing.PROPAGATE, tracing.UPDATE, tracing.CHOL_LANES} \
         <= {r.name for r in spans}
+    for f in frames:            # the launch under imu_slots, once a frame
+        kids = [r.name for r in spans if r.frame == f.frame
+                and r.name in (tracing.IMU_SLOTS, tracing.VISUAL_SEGMENT)]
+        assert kids == [tracing.IMU_SLOTS]      # no use_oc: no correction
+    assert bool(torch.isfinite(out.Tsb).all())
+
+
+def test_oc_frame_steps_on_the_card_match_the_cpu(cuda):
+    """``use_oc`` (the correction on the kernel's outputs) on the card
+    against the same config on the CPU (the plain version): poses within
+    phase 4's 1e-3 m over 6 frames, counts equal, one launch a frame."""
+    from chip_smoke import COUNT_FIELDS, pcw_config
+    from xivo_tpu_torch.runner import run_batch
+    cfg = dataclasses.replace(pcw_config(), use_oc=True)
+    T = 6
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        s, fib, _ = make_run(cfg, torch, dev, 2, frames=T)
+        n = ic.CHAIN.launches
+        outs[dev] = run_batch(cfg, s, fib)[1]
+        assert ic.CHAIN.launches == n + (T if dev == "cuda" else 0)
+    dpos = float((outs["cuda"].Tsb.cpu() - outs["cpu"].Tsb).abs().max())
+    assert dpos < 1e-3, dpos
+    for name in COUNT_FIELDS:
+        assert torch.equal(getattr(outs["cuda"], name).cpu(),
+                           getattr(outs["cpu"], name)), name
+
+
+@pytest.mark.parametrize("over", [dict(fast_substeps=0),
+                                  dict(propagation_mode="batched",
+                                       covariance_form="full")])
+def test_other_propagation_paths_launch_no_chain_kernel(cuda, over):
+    """The capped loop (``fast_substeps = 0``) and batched propagation
+    keep their own code on the card: no launch of the IMU chain."""
+    from chip_smoke import pcw_config
+    from xivo_tpu_torch.runner import run_batch
+    cfg = dataclasses.replace(pcw_config(), **over)
+    s, fib, _ = make_run(cfg, torch, "cuda", 2, frames=3)
+    n = ic.CHAIN.launches
+    _, out = run_batch(cfg, s, fib)
+    torch.cuda.synchronize()
+    assert ic.CHAIN.launches == n
     assert bool(torch.isfinite(out.Tsb).all())
 
 
@@ -357,7 +416,8 @@ def test_default_filter_on_the_card_matches_the_cpu(cuda):
     from chip_smoke import COUNT_FIELDS, FULL_PATH_TOL, default_config
     from xivo_tpu_torch.runner import run_batch
     cfg = default_config()
-    before = {k.name: k.launches for k in lc.KERNELS + chol.KERNELS}
+    before = {k.name: k.launches
+              for k in lc.KERNELS + chol.KERNELS + ic.KERNELS}
     outs = {}
     for dev in ("cuda", "cpu"):
         s, fib, _ = make_run(cfg, torch, dev, 2, frames=4)
@@ -367,7 +427,8 @@ def test_default_filter_on_the_card_matches_the_cpu(cuda):
     for name in COUNT_FIELDS:
         assert torch.equal(getattr(outs["cuda"], name).cpu(),
                            getattr(outs["cpu"], name)), name
-    assert {k.name: k.launches for k in lc.KERNELS + chol.KERNELS} == before
+    assert {k.name: k.launches
+            for k in lc.KERNELS + chol.KERNELS + ic.KERNELS} == before
 
 
 def test_default_filter_run_never_waits_and_finishes_every_interval(cuda):
@@ -635,6 +696,51 @@ def test_hamming_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     wide = q[:, :1].expand(2, hm.MAX_QUERIES + 1, 8).contiguous()
     with pytest.raises(ValueError):
         hm.hamming_nn(wide, d, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("KI,S,B,dt", [(1, 4, 1, None), (5, 4, 4096, 0.01),
+                                       (10, 4, 4096, 0.005),
+                                       (5, 4, 4096, None), (10, 5, 37, None),
+                                       (11, 5, 300, None), (11, 4, 2, None)])
+def test_imu_chain_kernel_matches_plain_version(cuda, dtype, KI, S, B, dt):
+    """One launch against the plain version on the same inputs: random
+    slot lengths with padded slots and dt_eff = 0 rows, or every slot dt
+    long as the benchmark's 100 and 200 Hz streams pack them."""
+    args = imu_chain_inputs(torch, B, KI, dtype, seed=10 * KI + S, dt=dt)
+    cfg = chain_config(S)
+    n = ic.CHAIN.launches
+    got = ic.imu_chain(cfg, *args)
+    assert ic.CHAIN.launches == n + 1
+    err = chain_errors(torch, got, ic.chain_plain(cfg, *args))
+    assert max(err.values()) <= CHAIN_TOL[str(dtype).split(".")[-1]], err
+
+
+def test_imu_chain_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    cfg = chain_config()
+    X, lg, la, sg, sa, gy, ac, dt, dte = imu_chain_inputs(
+        torch, 3, 4, torch.float32, seed=0)
+    head = (X, lg, la, sg, sa)
+    n = ic.CHAIN.launches
+    with pytest.raises(TypeError):
+        ic.imu_chain(cfg, type(X)(*(v.half() for v in X)),
+                     *(v.half() for v in (lg, la, sg, sa, gy, ac, dt, dte)))
+    with pytest.raises(TypeError):
+        ic.imu_chain(cfg, *head, gy, ac, dt, dte.double())
+    with pytest.raises(ValueError):     # slot lengths the readings lack
+        ic.imu_chain(cfg, *head, gy, ac, torch.cat([dt, dt], 1), dte)
+    with pytest.raises(ValueError):
+        ic.imu_chain(cfg, X._replace(Cg=X.Cg[:, :2]), lg, la, sg, sa, gy,
+                     ac, dt, dte)
+    with pytest.raises(ValueError):
+        ic.imu_chain(cfg, *head, gy, ac, dt, dte.cpu())
+    with pytest.raises(ValueError):     # the capped loop is not the grid
+        ic.imu_chain(dataclasses.replace(cfg, fast_substeps=0), *head, gy,
+                     ac, dt, dte)
+    with pytest.raises(ValueError):     # an empty batch launches nothing
+        ic.imu_chain(cfg, type(X)(*(v[:0] for v in X)),
+                     *(v[:0] for v in (lg, la, sg, sa, gy, ac, dt, dte)))
+    assert ic.CHAIN.launches == n
 
 
 def test_mapped_run_never_waits_for_the_card(cuda):

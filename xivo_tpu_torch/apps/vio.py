@@ -23,9 +23,9 @@ from ..io import IMUMsg, TrajectoryWriter, load_dataset
 
 
 def _kernels():
-    from ..ops import chol, hamming, lanes_chol, lk
+    from ..ops import chol, hamming, imu_chain, lanes_chol, lk
     return (lanes_chol.KERNELS + lk.KERNELS + hamming.KERNELS
-            + chol.KERNELS)
+            + chol.KERNELS + imu_chain.KERNELS)
 
 
 def replay(est, entries, max_frames=-1):

@@ -23,13 +23,13 @@ from .. import tracing
 from ..cam import models as cam_mod
 from ..geom import so3
 from ..ops.dense import constant, take_rows
+from ..ops.imu_chain import chain_plain, imu_chain
 from . import layout as L
 from .config import VIOConfig
 from .features import (bcast_X, change_owner, subfilter_update_table,
                        triangulate_two_view_checked)
 from .propagate import (imu_sample_update, oc_correct_phi,
-                        propagate_interval_fast,
-                        propagate_interval_fast_static, propagate_state,
+                        propagate_interval_fast, propagate_state,
                         qmodel_diag, with_motion_block)
 from .sqrt_form import (chol3x3, cov_diag, factor_propagate_absorb,
                         feature_band, is_sqrt)
@@ -1054,47 +1054,24 @@ def update_step(cfg: VIOConfig, s: VIOState) -> Tuple[VIOState, StepOutputs]:
 def _propagate_frame_fast(cfg: VIOConfig, s: VIOState, imu_gyro, imu_accel,
                           imu_dt, dt_eff) -> VIOState:
     """Fast-mode frame propagation: compose per-IMU-sample transitions
-    (the static substep grid, or at ``fast_substeps=0`` the capped loop),
-    then apply them to P once: to the factor, absorbing the frame's
-    process noise in the one per-frame re-compression, or to the dense
-    motion rows and columns."""
+    (the static substep grid, ``ops/imu_chain``: on the card one kernel
+    launch; or at ``fast_substeps=0`` the capped loop), then apply them to
+    P once: to the factor, absorbing the frame's process noise in the one
+    per-frame re-compression, or to the dense motion rows and columns."""
     m = L.MOTION
     dtype = s.P.dtype
-    B = s.P.shape[0]
-    eye = torch.eye(m, dtype=dtype, device=s.P.device)
-    prop_interval = (propagate_interval_fast_static
-                     if cfg.fast_substeps > 0 else propagate_interval_fast)
-
-    X, Phi = s.X, eye.expand(B, m, m)
-    Q = torch.zeros((B, m, m), dtype=dtype, device=s.P.device)
-    lg, la, sg, sa = s.last_gyro, s.last_accel, s.slope_gyro, s.slope_accel
-    nprop = torch.zeros((B,), dtype=torch.int64, device=s.P.device)
-
-    def step(X, Phi, Q, lg, la, sgn, san, dti):
-        Xn, Phi_i, Qi = prop_interval(cfg, X, lg, la, sgn, san, dti)
-        return (Xn, Phi_i @ Phi,
-                Phi_i @ Q @ Phi_i.transpose(-1, -2) + Qi)
-
-    with tracing.span(tracing.IMU_SLOTS):
-        for k in range(imu_dt.shape[1]):
-            gy, ac, dti = imu_gyro[:, k], imu_accel[:, k], imu_dt[:, k]
-            dts = torch.clamp(dti, min=1e-12)[:, None]
-            sgn, san = (gy - lg) / dts, (ac - la) / dts
-            new = step(X, Phi, Q, lg, la, sgn, san, dti) + (
-                gy, ac, sgn.to(dtype), san.to(dtype), nprop + 1)
-            (X, Phi, Q, lg, la, sg, sa, nprop) = where_state(
-                dti > 0, new, (X, Phi, Q, lg, la, sg, sa, nprop))
-
-    # visual-frame extrapolation segment
-    with tracing.span(tracing.VISUAL_SEGMENT):
-        vis = step(X, Phi, Q, lg, la, sg, sa, dt_eff) + (
-            lg + sg * dt_eff[:, None], la + sa * dt_eff[:, None], nprop + 1)
-        X, Phi, Q, lg, la, nprop = where_state(dt_eff > 0, vis,
-                                               (X, Phi, Q, lg, la, nprop))
-        if cfg.use_oc:
+    args = (cfg, s.X, s.last_gyro, s.last_accel, s.slope_gyro,
+            s.slope_accel, imu_gyro, imu_accel, imu_dt, dt_eff)
+    if cfg.fast_substeps > 0:
+        X, Phi, Q, lg, la, sg, sa, nprop = imu_chain(*args)
+    else:
+        X, Phi, Q, lg, la, sg, sa, nprop = chain_plain(
+            *args, interval=propagate_interval_fast)
+    if cfg.use_oc:
+        with tracing.span(tracing.VISUAL_SEGMENT):
             Phi = oc_correct_phi(cfg, Phi, X, s.oc_R, s.oc_V, s.oc_T,
                                  s.X.Rsg)
-            s = s._replace(oc_R=X.Rsb, oc_V=X.Vsb, oc_T=X.Tsb)
+        s = s._replace(oc_R=X.Rsb, oc_V=X.Vsb, oc_T=X.Tsb)
 
     with tracing.span(tracing.COV_PROPAGATE):
         Qd = Q + nprop.to(dtype)[:, None, None] \

@@ -52,10 +52,12 @@ import torch
 # batch runner
 FRAME = "frame"
 # propagation: pipeline.propagate_frame; its children in
-# pipeline._propagate_frame_fast
+# pipeline._propagate_frame_fast and ops/imu_chain
 PROPAGATE = "propagate"
-IMU_SLOTS = "imu_slots"              # the Python loop over the IMU slots
-VISUAL_SEGMENT = "visual_segment"    # extrapolation to the frame time
+IMU_SLOTS = "imu_slots"              # the loop over the IMU slots (on the
+#                                      card: the whole chain's one launch)
+VISUAL_SEGMENT = "visual_segment"    # extrapolation to the frame time (on
+#                                      the CPU); the OC correction
 COV_PROPAGATE = "cov_propagate"      # the factor's or dense block's update
 # tracker: pipeline.tracker_pointcloud
 TRACKER = "tracker"
